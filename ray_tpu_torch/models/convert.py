@@ -1,0 +1,92 @@
+"""Weights for ``TransformerLM``: from a flax tree, or made from a seed.
+
+``params_from_jax`` maps the JAX model's param tree (unboxed, leaves as
+numpy arrays; the layers stacked on a leading axis under ``layers/block``)
+to this package's ``state_dict``. ``init_params`` makes random weights
+with the JAX model's initialisers, from a ``torch.Generator``, on the
+device where they will be used.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.models.transformer import TransformerConfig
+
+# flax lecun_normal: a normal truncated at +-2, scaled so that the variance
+# is 1/fan_in; this constant is the std of the unit normal truncated there
+_TRUNC_STD = 0.87962566103423978
+
+_LINEARS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
+            ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
+
+
+def params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """flax param tree -> state_dict of CPU tensors (the leaves' dtype;
+    ``load_state_dict`` casts them to the model's)."""
+    blk = tree["layers"]["block"]
+    n_layers = np.asarray(blk["attn_norm"]["scale"]).shape[0]
+    sd = {"embed": torch.from_numpy(np.array(tree["embed"])),
+          "final_norm.scale": torch.from_numpy(
+              np.array(tree["final_norm"]["scale"]))}
+    if "unembed" in tree:
+        sd["unembed"] = torch.from_numpy(np.array(tree["unembed"]))
+    for i in range(n_layers):
+        for mod, name in _LINEARS:
+            w = np.array(blk[mod][name]["kernel"][i])
+            if name == "o":                  # [H, D, d_model]
+                w = w.reshape(-1, w.shape[-1])
+            else:                            # [d_model, (H|Hkv, D) | d_ff]
+                w = w.reshape(w.shape[0], -1)
+            sd[f"layers.{i}.{mod}.{name}"] = torch.from_numpy(w)
+        for norm in ("attn_norm", "mlp_norm"):
+            sd[f"layers.{i}.{norm}.scale"] = torch.from_numpy(
+                np.array(blk[norm]["scale"][i]))
+    return sd
+
+
+def _lecun_normal(shape, fan_in, generator, device, dtype):
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                generator=generator)
+    return w.to(dtype)
+
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator,
+                device="cuda", dtype: Optional[torch.dtype] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Seeded random weights as a state_dict on ``device``: lecun_normal
+    kernels, normal(0.02) embed/unembed, ones for the norm scales (the JAX
+    model's initialisers). Linear weights in ``dtype`` (default
+    ``cfg.dtype``), norm scales in fp32. ``generator`` lives on
+    ``device``."""
+    dev = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    E, F, HD = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
+    KD = cfg.n_kv_heads * cfg.head_dim
+    shapes = {"q": (E, HD), "k": (E, KD), "v": (E, KD), "o": (HD, E),
+              "gate": (E, F), "up": (E, F), "down": (F, E)}
+
+    def normal02(shape):
+        w = torch.empty(shape, dtype=torch.float32, device=dev)
+        return w.normal_(0.0, 0.02, generator=generator).to(dtype)
+
+    sd = {"embed": normal02((cfg.vocab_size, E))}
+    for i in range(cfg.n_layers):
+        for mod, name in _LINEARS:
+            shape = shapes[name]
+            sd[f"layers.{i}.{mod}.{name}"] = _lecun_normal(
+                shape, shape[0], generator, dev, dtype)
+        for norm in ("attn_norm", "mlp_norm"):
+            sd[f"layers.{i}.{norm}.scale"] = torch.ones(
+                E, dtype=torch.float32, device=dev)
+    sd["final_norm.scale"] = torch.ones(E, dtype=torch.float32, device=dev)
+    if not cfg.tie_embeddings:
+        sd["unembed"] = normal02((E, cfg.vocab_size))
+    return sd

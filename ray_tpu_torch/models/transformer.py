@@ -1,0 +1,284 @@
+"""Llama-style decoder-only transformer, the serving forward in PyTorch.
+
+Counterpart of ``ray_tpu/models/transformer.py``, with the same numbers:
+linear weights are stored in ``cfg.dtype`` (the JAX model casts its fp32
+kernels to that dtype before every product, so this is exactly what it
+computes), RMSNorm scales stay fp32, RMSNorm and rope compute in fp32.
+Weights keep the JAX layout flattened to 2-D ([in, out], e.g. q is
+[d_model, H * D]), so ``models/convert.py`` maps a flax tree one to one.
+
+The KV cache is a dict {"k", "v": [n_layers, B, M, Hkv, D], "idx"}; a
+forward with a cache writes its keys and values INTO those tensors in
+place (the JAX model returns new arrays) and returns a new dict with the
+advanced ``idx``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.ops.dispatch import attention as attention_dispatch
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    d_ff: int = 11008
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+    # keep logits in the activation dtype unless asked for fp32
+    logits_fp32: bool = False
+    # "auto"/"flash": the flash kernel; "reference": plain attention
+    attention_impl: str = "auto"
+    # Mixture-of-Experts (not ported yet): n_experts=0 is a dense MLP
+    n_experts: int = 0
+    expert_top_k: int = 2
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(
+            torch.empty(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        x32 = x.float()
+        y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + self.eps)
+        return (y * self.scale).to(self.dtype)
+
+
+def rope(x, positions, theta: float):
+    """Rotary embeddings, rotate-half split in fp32. x[B,L,H,D],
+    positions[B,L]."""
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)
+    angles = positions[..., None].float() * freqs          # [B,L,D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def _cached_attention(q, k_cache, v_cache, q_pos0):
+    """Decode-path attention against a padded KV cache, in fp32.
+
+    q [B,S,H,D] are the S newest positions starting at q_pos0, a scalar
+    (shared start) or a [B] tensor (per-slot starts); the caches [B,M,Hkv,D]
+    already hold the new keys/values. Query i attends cache slots
+    j <= q_pos0 + i. GQA is a grouped einsum against the unexpanded cache.
+    """
+    B, S, H, D = q.shape
+    M, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, S, Hkv, G, D).float()
+    scores = torch.einsum("bshgd,bmhd->bhgsm", qg,
+                          k_cache.float()) / float(D) ** 0.5
+    qpos = _positions(q_pos0, S, q.device)                    # [B|1,S]
+    mask = torch.arange(M, device=q.device)[None, None, :] <= qpos[:, :, None]
+    scores = scores.masked_fill(~mask[:, None, None], -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgsm,bmhd->bshgd", probs, v_cache.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def _positions(start, L: int, device):
+    """[1, L] (scalar start) or [B, L] (per-row [B] starts) absolute
+    positions start + 0..L-1. A Python int start costs no host-to-device
+    copy (which would wait for the stream)."""
+    steps = torch.arange(L, device=device)[None, :]
+    if isinstance(start, torch.Tensor):
+        return start.to(device).reshape(-1, 1) + steps
+    return steps + start
+
+
+def _cache_write(cache, new, idx):
+    """Write ``new`` [B,L,Hkv,D] into ``cache`` [B,M,Hkv,D] in place at
+    ``idx``: a scalar (shared offset) or a [B] tensor (per-row offsets).
+    As in JAX's dynamic_update_slice, a negative start counts from the end
+    and starts are then clamped to [0, M-L], so a full or free slot writes
+    at M-L harmlessly. Returns cache."""
+    L, M = new.shape[1], cache.shape[1]
+    new = new.to(cache.dtype)
+    if isinstance(idx, torch.Tensor) and idx.dim() > 0:
+        start = idx.to(cache.device).long()
+        start = torch.where(start < 0, start + M, start).clamp(0, M - L)
+        cols = start[:, None] + torch.arange(L, device=cache.device)
+        rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cache[rows, cols] = new
+        return cache
+    start = int(idx)
+    start = min(max(start + M if start < 0 else start, 0), M - L)
+    cache[:, start:start + L] = new
+    return cache
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        E, H, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        w = lambda i, o: nn.Parameter(  # noqa: E731
+            torch.empty(i, o, dtype=cfg.dtype, device=device))
+        self.q = w(E, H * D)
+        self.k = w(E, Hkv * D)
+        self.v = w(E, Hkv * D)
+        self.o = w(H * D, E)
+
+    def forward(self, x, positions, cache=None, chunked: bool = False):
+        """cache=None: prefill/training forward, returns out.
+        cache=(k_cache, v_cache, idx): writes this call's K/V at
+        [idx, idx+L) (idx scalar or per-slot [B]) and returns
+        (out, (k_cache, v_cache)). With L > 1 and not ``chunked`` it is a
+        one-shot prefill from an empty cache: the block attends only within
+        itself, through the flash kernel; otherwise (decode, or a chunk that
+        continues an occupied cache) it attends against the cache."""
+        cfg = self.cfg
+        B, L, _ = x.shape
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        q = rope((x @ self.q).view(B, L, H, D), positions, cfg.rope_theta)
+        k = rope((x @ self.k).view(B, L, Hkv, D), positions, cfg.rope_theta)
+        v = (x @ self.v).view(B, L, Hkv, D)
+        if cache is None:
+            out = attention_dispatch(q, k, v, causal=True,
+                                     impl=cfg.attention_impl)
+            return out.reshape(B, L, H * D) @ self.o
+        k_cache, v_cache, idx = cache
+        _cache_write(k_cache, k, idx)
+        _cache_write(v_cache, v, idx)
+        if L > 1 and not chunked:
+            out = attention_dispatch(q, k, v, causal=True,
+                                     impl=cfg.attention_impl)
+        else:
+            out = _cached_attention(q, k_cache, v_cache, idx)
+        return out.reshape(B, L, H * D) @ self.o, (k_cache, v_cache)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        w = lambda i, o: nn.Parameter(  # noqa: E731
+            torch.empty(i, o, dtype=cfg.dtype, device=device))
+        self.gate = w(cfg.d_model, cfg.d_ff)
+        self.up = w(cfg.d_model, cfg.d_ff)
+        self.down = w(cfg.d_ff, cfg.d_model)
+
+    def forward(self, x):
+        return (F.silu(x @ self.gate) * (x @ self.up)) @ self.down
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device=None):
+        super().__init__()
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                "MoE blocks are not ported yet (ROADMAP.md, Queue A item A5)")
+        self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
+        self.attn = Attention(cfg, device)
+        self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, positions, cache=None, chunked: bool = False):
+        att = self.attn(self.attn_norm(x), positions, cache, chunked)
+        new_cache = None
+        if cache is not None:
+            att, new_cache = att
+        h = x + att
+        out = h + self.mlp(self.mlp_norm(h))
+        return out if cache is None else (out, new_cache)
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
+               dtype: Optional[torch.dtype] = None, device="cuda"):
+    """Fresh KV cache: {'k','v': [n_layers,B,max_len,Hkv,D], 'idx': 0}
+    (idx is the next write position, a Python int here)."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev), "idx": 0}
+
+
+class TransformerLM(nn.Module):
+    """Parameters are allocated uninitialised on ``device`` (default the
+    card; "meta" allocates nothing): load them with ``load_state_dict``
+    from ``convert.params_from_jax`` or ``convert.init_params``."""
+
+    def __init__(self, cfg: TransformerConfig, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(
+            cfg.vocab_size, cfg.d_model, dtype=cfg.dtype, device=dev))
+        self.layers = nn.ModuleList(
+            Block(cfg, dev) for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, dev)
+        self.unembed = None if cfg.tie_embeddings else nn.Parameter(
+            torch.empty(cfg.d_model, cfg.vocab_size, dtype=cfg.dtype,
+                        device=dev))
+
+    def forward(self, tokens, positions=None, return_hidden: bool = False,
+                cache=None, chunked_prefill: bool = False):
+        """tokens [B,L] -> logits [B,L,V] (or the final-norm hidden states
+        with ``return_hidden``); with a cache -> (logits, new_cache).
+
+        chunked_prefill=True (needs a cache): this L>1 forward CONTINUES a
+        partly filled cache, attending it at the causal offset cache["idx"],
+        which may be a scalar or a per-row [B] tensor (the engine's slot
+        pool, where every row decodes at its own length)."""
+        B, L = tokens.shape
+        if positions is None:
+            start = 0 if cache is None else cache["idx"]
+            positions = _positions(start, L, tokens.device).expand(B, L)
+        x = F.embedding(tokens, self.embed)
+        if cache is not None:
+            return self._decode(x, positions, cache, return_hidden,
+                                chunked_prefill)
+        for block in self.layers:
+            x = block(x, positions)
+        x = self.final_norm(x)
+        return x if return_hidden else self._logits(x)
+
+    def _logits(self, x):
+        """Final-norm hidden -> vocab logits, honouring tie_embeddings and
+        logits_fp32."""
+        if self.cfg.tie_embeddings:
+            logits = x @ self.embed.t()
+        else:
+            logits = x @ self.unembed
+        return logits.float() if self.cfg.logits_fp32 else logits
+
+    def _decode(self, x, positions, cache, return_hidden,
+                chunked_prefill=False):
+        idx = cache["idx"]
+        for i, block in enumerate(self.layers):
+            x, _ = block(x, positions, (cache["k"][i], cache["v"][i], idx),
+                         chunked_prefill)
+        new_cache = {"k": cache["k"], "v": cache["v"],
+                     "idx": idx + x.shape[1]}
+        x = self.final_norm(x)
+        return (x if return_hidden else self._logits(x)), new_cache
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -1,0 +1,137 @@
+"""Where the serving path's time goes on the card, for tpu-7b.
+
+    python -m ray_tpu_torch.trace_serving
+
+Builds tpu-7b at full width and depth with seeded random weights, then, at
+batch 8 and prompt 512 (the shape of chip_smoke.py's generator phase):
+
+1. times the generator's one-shot prefill and its single-token decode
+   steps (host clock around work that ends in a synchronise);
+2. times the engine's decode step with every slot occupied;
+3. traces one prefill and three decode steps with torch.profiler and
+   prints the device time by kernel and the device's busy share of the
+   traced wall time.
+
+Needs a CUDA card. Prints the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ray_tpu_torch.inference import EngineConfig, InferenceEngine
+from ray_tpu_torch.models import (MODEL_REGISTRY, TransformerLM, init_cache,
+                                  init_params)
+
+B = 8        # requests decoded together
+P = 512      # prompt tokens
+STEPS = 16   # decode steps timed
+
+
+def _ms(fn, n=1):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _device_us(evt):
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def _report(title, prof, wall_ms, top=12):
+    # kernels only: an operator's row repeats the time of its kernels
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    print(f"{title}: traced wall {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    for e in sorted(events, key=_device_us, reverse=True)[:top]:
+        print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
+              f"{e.key[:90]}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}")
+    cfg = MODEL_REGISTRY["tpu-7b"]
+    model = TransformerLM(cfg, device="meta")
+    model.load_state_dict(init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
+        assign=True)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, B, P + STEPS + 8)
+        state = {}
+
+        def prefill():
+            cache["idx"] = 0
+            state["logits"], state["cache"] = model(tokens, cache=cache)
+
+        prefill()                                  # warm-up
+        prefill_ms = _ms(prefill, 3)
+        tok = state["logits"][:, -1].argmax(-1)
+
+        def decode():
+            state["logits"], state["cache"] = model(tok[:, None],
+                                                    cache=state["cache"])
+
+        decode()                                   # warm-up
+        decode_ms = _ms(decode, STEPS)
+        print(f"generator, B={B}: prefill of {P} tokens {prefill_ms:.2f} ms"
+              f", decode step {decode_ms:.2f} ms ({B * 1e3 / decode_ms:.1f} "
+              f"tokens/s)")
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = _ms(prefill)
+        _report("trace: one prefill", prof, wall)
+        state["cache"]["idx"] = P
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = _ms(decode, 3)
+        _report("trace: three decode steps", prof, 3 * wall)
+        del cache, state
+
+    eng = InferenceEngine(model, EngineConfig(
+        n_slots=B, max_len=1024, prefill_chunk=128, prefill_budget=1024),
+        device="cuda")
+    rng = np.random.RandomState(0)
+    handles = [eng.submit(rng.randint(0, cfg.vocab_size, P),
+                          max_new_tokens=1000 - P) for _ in range(B)]
+    while any(h.first_token_t is None for h in handles):
+        eng.step()
+    eng.step()                                     # warm-up
+    step_ms = _ms(eng.step, STEPS)
+    print(f"engine, {B} slots occupied at ~{P} tokens: decode step "
+          f"{step_ms:.2f} ms ({B * 1e3 / step_ms:.1f} tokens/s)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = _ms(eng.step, 3)
+    _report("trace: three engine decode steps", prof, 3 * wall)
+    for h in handles:
+        h.cancel()
+    eng.step()
+    print(f"card: {card}")
+
+
+if __name__ == "__main__":
+    main()
