@@ -6,11 +6,14 @@
 Phases, each of which must pass (any failure exits non-zero):
 
 1. The card's name and power limit (from nvidia-smi), then the build of
-   every kernel from the sources under ray_tpu_torch/ops/csrc.
+   every kernel from the sources under ray_tpu_torch/ops/csrc (one nvcc
+   per source, all started together) with each one's ptxas report.
 2. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and a few edge shapes, and timed beside its plain version,
+   paths' shapes and a few edge shapes, and timed beside its plain version,
    the least time the card could take (bound) and one PyTorch library call
-   computing the same function.
+   computing the same function: the flash forward (B1) at the tpu-7b
+   prefill shape, the dQ (B2) and dK/dV (B3) backward kernels at the
+   tpu-3b training shape.
 3. The generator at the full width and depth of tpu-7b (32 layers, bf16,
    seeded random weights): make_generate_fn with batch 8, prompt 512, 32
    new tokens, greedy. Its prefill must launch the flash kernel once per
@@ -20,13 +23,23 @@ Phases, each of which must pass (any failure exits non-zero):
    100-700 prompt tokens, one submitted mid-decode, stepped to the end.
    Every greedy token it emitted is then held against a one-shot forward
    of the same weights over the prompt and the tokens before it.
-5. A JSON line of the kernels, the card line again, and last the result.
+5. Training at tpu-3b width and 4 layers (fp32 master weights, bf16
+   compute, batch 4 x 1024): one make_train_fns step through the kernels
+   and one through plain attention, from the same weights; the loss,
+   grad_norm and every parameter's gradient must agree.
+6. Training tpu-3b at full width and depth: make_train_fns with adamw(3e-4)
+   and loss_chunk 256, 5 steps of batch 4 x 1024 on one repeated batch.
+   Every step must launch each of the three kernels once per layer, and
+   the loss must fall. Step time, tokens/s and peak memory are printed.
+7. A JSON line of the kernels, the card line again, and last the result.
 
-Launch counts are zeroed just before each main-path phase (3, 4) and read
-just after it; launches made to compare or time a kernel do not count.
+The serving model is freed before the training phases. Launch counts are
+zeroed just before each main-path phase (3, 4, 6) and read just after it;
+launches made to compare or time a kernel (2, 5) do not count.
 """
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -56,6 +69,32 @@ LOGITS_REL_TOL = 5e-2
 # room for decode's longer caches. A wrong slot, position or cache write
 # picks a token several units (logits spread ~6) below the argmax.
 NEAR_TIE_GAP = 0.5
+
+# B2/B3 in bf16 against their plain version, relative L2 error of each
+# gradient: dq/dk/dv are stored in bf16 (a relative step of up to 2**-8)
+# and ds is rounded to bf16 from fp32 values that differ in their last
+# bits between the two, so an elementwise bound would have to grow with L
+BWD_BF16_REL_L2 = 1e-2
+# phase 5, one training step at tpu-3b width through the kernels against
+# one through plain attention (mha_reference under autograd), same weights
+# and batch. The plain attention rounds its scores to bf16 before the
+# softmax and the kernels keep them in fp32, as in the prefill-logits check
+# above, so the two differ as bf16 paths do: the loss (~10.4 = ln 32000 at
+# random init, a mean over 4096 positions) to 1e-2 absolute; grad_norm and
+# each parameter's gradient to a relative L2 error of 5e-2, the bound held
+# on the prefill logits above (LOGITS_REL_TOL). A one-off fp32-compute run
+# of the same step (H100 80GB HBM3, 700 W) put the largest gradient rel L2
+# of the kernel path at 3.01e-2 from it and that of plain attention at
+# 3.32e-2: the two bf16 paths differ far less from each other than either
+# does from fp32
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GRAD_REL_L2 = 5e-2
+# phase 6: memorising one batch, the loss after 5 steps must be below the
+# first by this much, the margin the JAX package asserts for its own train
+# step (tests/test_model_parallel.py)
+LOSS_DROP = 0.1
+
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
@@ -93,32 +132,76 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(q, k, causal):
-    """Least time for attention forward on these inputs: each of q, k, v,
-    o read or written once (+ fp32 lse), against 4*D FLOPs per (query,
-    key) pair that the mask keeps."""
-    B, Lq, H, D = q.shape
+def kept_pairs(q, k, causal):
+    """(query, key) pairs the mask keeps, over batch and query heads."""
+    B, Lq, H, _ = q.shape
     Lk = k.shape[1]
     if causal:
         rows = torch.arange(Lq, dtype=torch.float64)
-        pairs = float(torch.clamp(rows + 1, max=Lk).sum())
-    else:
-        pairs = float(Lq * Lk)
-    flops = 4.0 * B * H * D * pairs
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
-        + B * H * Lq * 4
-    peak = H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_FP32_FLOPS
+        return B * H * float(torch.clamp(rows + 1, max=Lk).sum())
+    return float(B * H * Lq * Lk)
+
+
+def roofline_ms(flops, nbytes, dtype):
+    """Least time on the card: the larger of the operations over the peak
+    rate of their type and the bytes over the memory rate."""
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
+def attention_bound_ms(q, k, causal):
+    """Forward: q, k, v read and o written once (+ fp32 lse), against
+    4*D FLOPs (two products) per kept pair."""
+    B, Lq, H, D = q.shape
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + B * H * Lq * 4
+    return roofline_ms(4.0 * D * kept_pairs(q, k, causal), nbytes,
+                       q.dtype)
+
+
+def bwd_bound_ms(q, k, causal, kernel):
+    """Backward kernels: each input read once and each output written once
+    (dQ: q, k, v, dO in, dq out; dK/dV: q, k, v, dO in, dk, dv out; both
+    read the fp32 lse and delta), against 2*D FLOPs per product per kept
+    pair: three products for dQ (s, dp, dq), four for dK/dV (s, dp, dv,
+    dk)."""
+    B, Lq, H, D = q.shape
+    q_n, k_n = q.numel(), k.numel()
+    elems = 3 * q_n + 2 * k_n if kernel == "flash_bwd_dq" \
+        else 2 * q_n + 4 * k_n
+    products = 3 if kernel == "flash_bwd_dq" else 4
+    nbytes = elems * q.element_size() + 2 * B * H * Lq * 4
+    return roofline_ms(2.0 * D * products * kept_pairs(q, k, causal),
+                       nbytes, q.dtype)
+
+
+def wrappers(ops):
+    return {"flash_fwd": ops.flash_attention_fwd,
+            "flash_bwd_dq": ops.flash_attention_bwd_dq,
+            "flash_bwd_dkv": ops.flash_attention_bwd_dkv}
+
+
+def zero_counts(ops):
+    for fn in wrappers(ops).values():
+        fn.launches = 0
+
+
+def read_counts(ops):
+    return {name: fn.launches for name, fn in wrappers(ops).items()}
+
+
 def check_flash_kernel(ops):
-    """Phase 2: kernel vs plain version on the card; timing at the tpu-7b
-    prefill shape. Returns the kernel's record (without launches)."""
+    """Phase 2: kernel vs plain version on the card, at the shapes of both
+    main paths (tpu-7b prefill, tpu-3b training) and edge shapes; timing
+    at the tpu-7b prefill shape. Returns the kernel's record (without
+    launches)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = [  # name, B, Lq, Lk, H, Hkv, D, dtype, causal
         ("tpu-7b prefill", 8, 512, 512, 32, 8, 128, torch.bfloat16, True),
+        ("tpu-3b training", 4, 1024, 1024, 24, 8, 128, torch.bfloat16,
+         True),
         ("llama-1b prefill", 8, 512, 512, 32, 8, 64, torch.bfloat16, True),
         ("ragged L=200", 2, 200, 200, 32, 8, 128, torch.bfloat16, True),
         ("Lq<Lk causal", 2, 130, 300, 32, 8, 128, torch.bfloat16, True),
@@ -180,6 +263,151 @@ def check_flash_kernel(ops):
     return record
 
 
+def rel_l2(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+def check_bwd_kernels(ops):
+    """Phase 2, backward: the dQ and dK/dV kernels against their plain
+    version on the card, on the forward kernel's o and lse (each held to
+    the plain forward's first); timing at the
+    tpu-3b training shape. Returns the two kernels' records (without
+    launches)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cases = [  # name, B, Lq, Lk, H, Hkv, D, dtype, causal
+        ("tpu-3b training", 4, 1024, 1024, 24, 8, 128, torch.bfloat16,
+         True),
+        ("D=64 GQA 32/8", 2, 512, 512, 32, 8, 64, torch.bfloat16, True),
+        ("ragged L=200", 2, 200, 200, 24, 8, 128, torch.bfloat16, True),
+        ("Lq<Lk causal", 2, 130, 300, 24, 8, 128, torch.bfloat16, True),
+        ("Lq>Lk causal", 2, 300, 130, 32, 8, 64, torch.bfloat16, True),
+        ("Lq<Lk non-causal", 2, 130, 300, 24, 8, 128, torch.bfloat16,
+         False),
+        ("Lq>Lk non-causal", 2, 300, 130, 8, 2, 64, torch.bfloat16, False),
+        ("fp32 ragged", 2, 200, 200, 8, 2, 128, torch.float32, True),
+        ("fp32 Lq<Lk causal", 1, 130, 300, 4, 1, 64, torch.float32, True),
+        ("fp32 Lq>Lk non-causal", 2, 300, 130, 8, 2, 64, torch.float32,
+         False),
+    ]
+    records = None
+    for name, B, Lq, Lk, H, Hkv, D, dtype, causal in cases:
+        def rand(*shape):
+            return torch.randn(shape, generator=g, device="cuda",
+                               dtype=torch.float32).to(dtype)
+        q, k, v = rand(B, Lq, H, D), rand(B, Lk, Hkv, D), rand(B, Lk, Hkv, D)
+        do = rand(B, Lq, H, D)
+        o, lse = ops.flash_attention_fwd(q, k, v, causal)
+        # the backward reads the forward kernel's o and lse: hold them to
+        # their plain version first, so that both backwards are given right
+        # inputs
+        ro, rlse = ops.flash_attention_fwd_reference(q, k, v, causal)
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        if not (torch.allclose(o.float(), ro.float(), rtol=tol, atol=tol)
+                and torch.allclose(lse, rlse, rtol=FP32_TOL, atol=FP32_TOL)):
+            fail(f"flash_fwd {name}: o or lse disagrees with its plain "
+                 f"version (max |o-plain| "
+                 f"{(o.float() - ro.float()).abs().max().item():.3e}, "
+                 f"max |lse-plain| {(lse - rlse).abs().max().item():.3e})")
+        del ro, rlse
+        before = read_counts(ops)
+        got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        after = read_counts(ops)
+        for kernel in KERNELS[1:]:
+            if after[kernel] != before[kernel] + 1:
+                fail(f"{kernel} {name}: the launch counter did not move")
+        want = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+        errs = [(got_i.float() - want_i.float()).abs().max().item()
+                for got_i, want_i in zip(got, want)]
+        rels = [rel_l2(got_i, want_i) for got_i, want_i in zip(got, want)]
+        if dtype == torch.float32:
+            ok = all(torch.allclose(got_i, want_i, rtol=FP32_TOL,
+                                    atol=FP32_TOL)
+                     for got_i, want_i in zip(got, want))
+            tol = f"rtol=atol={FP32_TOL:g}"
+        else:
+            ok = max(rels) <= BWD_BF16_REL_L2
+            tol = f"rel L2 {BWD_BF16_REL_L2:g}"
+        ok = ok and all(torch.isfinite(x.float()).all() for x in got)
+        print(f"flash_bwd {name}: B={B} Lq={Lq} Lk={Lk} H={H} Hkv={Hkv} "
+              f"D={D} {dtype} causal={causal}: max|d-plain| dq/dk/dv "
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}, rel L2 "
+              f"{rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e} ({tol}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            fail(f"flash_bwd {name} disagrees with its plain version")
+        if records is None:   # the training path's shape: time it
+            records = time_bwd_kernels(ops, q, k, v, o, lse, do, causal,
+                                       errs)
+        del q, k, v, do, o, lse, got, want
+    torch.cuda.empty_cache()
+    return records
+
+
+def time_bwd_kernels(ops, q, k, v, o, lse, do, causal, errs):
+    """B2 and B3 alone, their plain versions, their bounds, and PyTorch's
+    backward of scaled_dot_product_attention (dq, dk and dv in one call, so
+    the same library time stands beside both); B1 at this shape too."""
+    delta = ops._delta(o, do)
+    ms = {
+        "flash_bwd_dq": cuda_ms(lambda: ops.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal)),
+        "flash_bwd_dkv": cuda_ms(lambda: ops.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal)),
+    }
+    plain_ms = {
+        "flash_bwd_dq": cuda_ms(lambda: ops.flash_attention_bwd_dq_reference(
+            q, k, v, do, lse, delta, causal)),
+        "flash_bwd_dkv": cuda_ms(
+            lambda: ops.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, causal)),
+    }
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    library_ms = cuda_ms(sdpa_bwd)
+    want = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    sdpa_rel = [rel_l2(x.transpose(1, 2), w)
+                for x, w in zip(sdpa_bwd(), want)]
+    fwd_ms = cuda_ms(lambda: ops.flash_attention_fwd(q, k, v, causal))
+    fwd_plain_ms = cuda_ms(
+        lambda: ops.flash_attention_fwd_reference(q, k, v, causal))
+    fwd_sdpa_ms = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt.detach(), kt.detach(), vt.detach(), is_causal=causal,
+            enable_gqa=True))
+    fwd_bound, fwd_by = attention_bound_ms(q, k, causal)
+    print(f"flash_fwd at the tpu-3b training shape: kernel {fwd_ms:.4f} ms, "
+          f"plain {fwd_plain_ms:.4f} ms, sdpa {fwd_sdpa_ms:.4f} ms, bound "
+          f"{fwd_bound:.4f} ms by {fwd_by}", flush=True)
+    print(f"sdpa backward at the tpu-3b training shape: {library_ms:.4f} ms "
+          f"for dq, dk and dv together; rel L2 vs plain dq/dk/dv "
+          f"{sdpa_rel[0]:.3e}/{sdpa_rel[1]:.3e}/{sdpa_rel[2]:.3e}",
+          flush=True)
+    records = []
+    for kernel, src, line, err in (
+            ("flash_bwd_dq", "flash_bwd_dq.cu", 94, errs[0]),
+            ("flash_bwd_dkv", "flash_bwd_dkv.cu", 129, max(errs[1:]))):
+        bound, by = bwd_bound_ms(q, k, causal, kernel)
+        print(f"{kernel} tpu-3b training timing: kernel {ms[kernel]:.4f} ms,"
+              f" plain {plain_ms[kernel]:.4f} ms, sdpa backward "
+              f"{library_ms:.4f} ms, bound {bound:.4f} ms by {by}",
+              flush=True)
+        records.append({"name": kernel, "route": "cuda",
+                        "source": f"ray_tpu_torch/ops/csrc/{src}",
+                        "replaces": f"ray_tpu/ops/attention.py:{line}",
+                        "max_abs_err": err, "ms": ms[kernel],
+                        "plain_ms": plain_ms[kernel], "bound_ms": bound,
+                        "bound_by": by, "library_ms": library_ms})
+    return records
+
+
 def run_generator(models, ops, device="cuda", name="tpu-7b", B=8, P=512,
                   N=32):
     """Phase 3. Returns (model, flash launches during generation). On a
@@ -199,12 +427,13 @@ def run_generator(models, ops, device="cuda", name="tpu-7b", B=8, P=512,
                            generator=torch.Generator(device=device)
                            .manual_seed(1))
 
-    ops.flash_attention_fwd.launches = 0           # main path: generator
+    zero_counts(ops)                               # main path: generator
     t0 = time.perf_counter()
     out = gen_fn(tokens)
     sync(device)
     gen_s = time.perf_counter() - t0
-    launches = ops.flash_attention_fwd.launches
+    counts = read_counts(ops)
+    launches = counts["flash_fwd"]
     print(f"generator: {B}x{P} prompt + {N} new tokens in {gen_s:.3f} s "
           f"({B * N / gen_s:.1f} tokens/s incl. prefill), flash_fwd "
           f"launches {launches}", flush=True)
@@ -212,6 +441,8 @@ def run_generator(models, ops, device="cuda", name="tpu-7b", B=8, P=512,
     if launches != want_launches:
         fail(f"the prefill launched flash_fwd {launches} times, want "
              f"{want_launches} (one per layer on the card)")
+    if counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]:
+        fail(f"serving launched backward kernels: {counts}")
     if tuple(out.shape) != (B, N) or int(out.min()) < 0 \
             or int(out.max()) >= cfg.vocab_size:
         fail(f"generator output {tuple(out.shape)} out of range")
@@ -260,7 +491,7 @@ def run_engine(model, models, inference, ops, card, device="cuda",
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, vocab, n) for n in lens]
 
-    ops.flash_attention_fwd.launches = 0           # main path: engine
+    zero_counts(ops)                               # main path: engine
     t0 = time.perf_counter()
     handles = [eng.submit(p, max_new_tokens=n)
                for p, n in zip(prompts[:-1], new[:-1])]
@@ -283,7 +514,10 @@ def run_engine(model, models, inference, ops, card, device="cuda",
             fail("engine: requests did not finish")
     sync(device)
     wall = time.perf_counter() - t0
-    launches = ops.flash_attention_fwd.launches
+    counts = read_counts(ops)
+    launches = counts["flash_fwd"]
+    if counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]:
+        fail(f"serving launched backward kernels: {counts}")
 
     total = 0
     streams = []
@@ -330,11 +564,128 @@ def run_engine(model, models, inference, ops, card, device="cuda",
     return launches
 
 
+def train_fns(models, parallel, cfg, device, B, L, loss_chunk):
+    """A tpu-3b-shaped model on the meta device and its trainer: adamw(3e-4)
+    with optax's other defaults, fp32 master weights."""
+    model = models.TransformerLM(cfg, device="meta")
+    init_fn, step_fn = parallel.make_train_fns(
+        model, parallel.adamw(3e-4), batch_shape=(B, L + 1),
+        loss_chunk=loss_chunk, device=device)
+    return model, init_fn, step_fn
+
+
+def run_train_parity(models, parallel, ops, device="cuda", name="tpu-3b",
+                     n_layers=4, B=4, L=1024, loss_chunk=256):
+    """Phase 5: one training step through the kernels and one through
+    plain attention, from the same seeded weights and batch."""
+    cfg = dataclasses.replace(models.MODEL_REGISTRY[name], n_layers=n_layers)
+    tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(2))
+    plain = dataclasses.replace(cfg, attention_impl="reference")
+    runs = {}
+    for impl, run_cfg in (("kernels", cfg), ("plain", plain)):
+        model, init_fn, step_fn = train_fns(models, parallel, run_cfg,
+                                            device, B, L, loss_chunk)
+        state = init_fn(torch.Generator(device=device).manual_seed(0))
+        zero_counts(ops)
+        _, metrics = step_fn(state, tokens)
+        sync(device)
+        runs[impl] = (metrics["loss"].item(), metrics["grad_norm"].item(),
+                      {n: p.grad for n, p in model.named_parameters()},
+                      read_counts(ops))
+        del model, state, metrics
+    want_launches = n_layers if device == "cuda" else 0
+    for impl, (_, _, _, counts) in runs.items():
+        want = want_launches if impl == "kernels" else 0
+        if set(counts.values()) != {want}:
+            fail(f"train step through {impl} attention launched {counts}, "
+                 f"want {want} of each kernel")
+
+    (loss, gnorm, grads, _), (rloss, rgnorm, rgrads, _) = \
+        runs["kernels"], runs["plain"]
+    rels = sorted(((rel_l2(grads[n], rgrads[n]), n) for n in grads),
+                  reverse=True)
+    loss_diff, gnorm_rel = abs(loss - rloss), abs(gnorm - rgnorm) / rgnorm
+    print(f"train step, {name} width, {n_layers} layers, B={B} L={L}, "
+          f"kernels vs plain: loss {loss:.6f} vs {rloss:.6f} (|diff| "
+          f"{loss_diff:.3e}, tol {TRAIN_LOSS_TOL:g}), grad_norm {gnorm:.6f} "
+          f"vs {rgnorm:.6f} (rel {gnorm_rel:.3e}), gradient rel L2 over "
+          f"{len(rels)} parameters: max {rels[0][0]:.3e}, median "
+          f"{rels[len(rels) // 2][0]:.3e} (tol {TRAIN_GRAD_REL_L2:g}); "
+          f"largest three {[(n, round(r, 5)) for r, n in rels[:3]]}",
+          flush=True)
+    values = [v for run in runs.values() for v in run[:2]]
+    if not all(map(np.isfinite, values)) or loss_diff > TRAIN_LOSS_TOL \
+            or max(gnorm_rel, rels[0][0]) > TRAIN_GRAD_REL_L2:
+        fail("the kernel training step disagrees with plain attention")
+    del runs
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_train(models, parallel, ops, card, device="cuda", name="tpu-3b",
+              n_layers=None, B=4, L=1024, steps=5, loss_chunk=256):
+    """Phase 6: train at full width and depth. Returns the kernel launch
+    counts of the run."""
+    cfg = models.MODEL_REGISTRY[name]
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model, init_fn, step_fn = train_fns(models, parallel, cfg, device, B, L,
+                                        loss_chunk)
+    t0 = time.perf_counter()
+    state = init_fn(torch.Generator(device=device).manual_seed(0))
+    sync(device)
+    print(f"train {name}: {models.count_params(model) / 1e9:.3f} B "
+          f"parameters in {next(model.parameters()).dtype}, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(3))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    want = cfg.n_layers if device == "cuda" else 0
+    losses, times = [], []
+    zero_counts(ops)                               # main path: training
+    for i in range(steps):
+        before = read_counts(ops)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        losses.append(loss)
+        step_counts = {k: n - before[k] for k, n in read_counts(ops).items()}
+        print(f"train step {i + 1}: loss {loss:.6f}, grad_norm {gnorm:.6f},"
+              f" {times[-1] * 1e3:.1f} ms ({B * L / times[-1]:.1f} tokens/s),"
+              f" launches {step_counts}", flush=True)
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"train step {i + 1}: loss {loss}, grad_norm {gnorm}")
+        if set(step_counts.values()) != {want}:
+            fail(f"train step {i + 1} launched {step_counts}, want {want} "
+                 f"of each kernel (one per layer on the card)")
+    counts = read_counts(ops)
+    steady = float(np.median(times[1:])) if steps > 1 else times[0]
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            if device == "cuda" else "n/a (CPU)")
+    print(f"train {name}: {steps} steps of {B}x{L} tokens, step time "
+          f"{steady * 1e3:.1f} ms (median of steps 2-{steps}), "
+          f"{B * L / steady:.1f} tokens/s, peak memory allocated {peak}, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} [{card}]", flush=True)
+    if not losses[-1] < losses[0] - LOSS_DROP:
+        fail(f"the loss did not fall by {LOSS_DROP}: {losses}")
+    if state.step != steps:
+        fail(f"state.step is {state.step}, want {steps}")
+    del state, model
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
              "card")
-    from ray_tpu_torch import inference, models
+    from ray_tpu_torch import inference, models, parallel
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as ops
 
@@ -346,20 +697,34 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    _, log = _build.build("flash_fwd")
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
-    for line in log.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")):
-            print(f"ptxas flash_fwd: {line.strip()}", flush=True)
+    built = _build.build(*KERNELS)
+    print(f"kernel build ({len(KERNELS)} sources in parallel): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, (_, log) in built.items():
+        for line in log.splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
 
-    record = check_flash_kernel(ops)
+    records = {"flash_fwd": check_flash_kernel(ops)}
+    for record in check_bwd_kernels(ops):
+        records[record["name"]] = record
     model, gen_launches = run_generator(models, ops)
     eng_launches = run_engine(model, models, inference, ops, card)
-    record["launches"] = gen_launches + eng_launches
-    if record["launches"] == 0:
-        fail("the main path never launched flash_fwd")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_train_parity(models, parallel, ops)
+    train_counts = run_train(models, parallel, ops, card)
+    for name in KERNELS:
+        records[name]["launches"] = train_counts[name]
+    records["flash_fwd"]["launches"] += gen_launches + eng_launches
+    for name in KERNELS:
+        if records[name]["launches"] == 0:
+            fail(f"the main path never launched {name}")
 
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [records[name] for name in KERNELS]}),
+          flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

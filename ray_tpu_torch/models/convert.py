@@ -2,9 +2,10 @@
 
 ``params_from_jax`` maps the JAX model's param tree (unboxed, leaves as
 numpy arrays; the layers stacked on a leading axis under ``layers/block``)
-to this package's ``state_dict``. ``init_params`` makes random weights
-with the JAX model's initialisers, from a ``torch.Generator``, on the
-device where they will be used.
+to this package's ``state_dict``; a gradient tree of the same structure
+maps the same way, onto the parameters' names. ``init_params`` makes
+random weights with the JAX model's initialisers, from a
+``torch.Generator``, on the device where they will be used.
 """
 
 from __future__ import annotations
@@ -63,9 +64,10 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 ) -> Dict[str, torch.Tensor]:
     """Seeded random weights as a state_dict on ``device``: lecun_normal
     kernels, normal(0.02) embed/unembed, ones for the norm scales (the JAX
-    model's initialisers). Linear weights in ``dtype`` (default
-    ``cfg.dtype``), norm scales in fp32. ``generator`` lives on
-    ``device``."""
+    model's initialisers). Linear and embedding weights in ``dtype``:
+    by default ``cfg.dtype``, the serving storage; the trainer passes
+    ``cfg.param_dtype`` (fp32 master weights). Norm scales in fp32.
+    ``generator`` lives on ``device``."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     E, F, HD = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim

@@ -1,11 +1,18 @@
-"""Llama-style decoder-only transformer, the serving forward in PyTorch.
+"""Llama-style decoder-only transformer in PyTorch: the training and
+serving forward.
 
 Counterpart of ``ray_tpu/models/transformer.py``, with the same numbers:
-linear weights are stored in ``cfg.dtype`` (the JAX model casts its fp32
-kernels to that dtype before every product, so this is exactly what it
-computes), RMSNorm scales stay fp32, RMSNorm and rope compute in fp32.
-Weights keep the JAX layout flattened to 2-D ([in, out], e.g. q is
-[d_model, H * D]), so ``models/convert.py`` maps a flax tree one to one.
+linear, embedding and unembedding weights are cast to ``cfg.dtype`` at
+every use, as the JAX model casts its ``param_dtype`` kernels (embedding
+rows are gathered, then cast, which gives the same values); RMSNorm scales
+stay fp32, RMSNorm and rope compute in fp32. The weights' storage dtype is
+that of the tensors loaded into the model: ``cfg.dtype`` by default (the
+model's allocation and ``convert.init_params``' default, the serving
+storage, where the cast is free), ``cfg.param_dtype`` (fp32 master
+weights) where the trainer's ``init_fn`` loads them. Weights keep
+the JAX layout flattened to 2-D ([in, out], e.g. q is [d_model, H * D]),
+so ``models/convert.py`` maps a flax tree one to one. The forward without
+a cache carries autograd end to end: it writes nothing in place.
 
 The KV cache is a dict {"k", "v": [n_layers, B, M, Hkv, D], "idx"}; a
 forward with a cache writes its keys and values INTO those tensors in
@@ -38,6 +45,8 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # the trainer's master weights (make_train_fns' init_fn stores them so)
+    param_dtype: torch.dtype = torch.float32
     tie_embeddings: bool = False
     # keep logits in the activation dtype unless asked for fp32
     logits_fp32: bool = False
@@ -155,14 +164,16 @@ class Attention(nn.Module):
         continues an occupied cache) it attends against the cache."""
         cfg = self.cfg
         B, L, _ = x.shape
-        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        q = rope((x @ self.q).view(B, L, H, D), positions, cfg.rope_theta)
-        k = rope((x @ self.k).view(B, L, Hkv, D), positions, cfg.rope_theta)
-        v = (x @ self.v).view(B, L, Hkv, D)
+        H, Hkv, D, dt = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dtype
+        q = rope((x @ self.q.to(dt)).view(B, L, H, D), positions,
+                 cfg.rope_theta)
+        k = rope((x @ self.k.to(dt)).view(B, L, Hkv, D), positions,
+                 cfg.rope_theta)
+        v = (x @ self.v.to(dt)).view(B, L, Hkv, D)
         if cache is None:
             out = attention_dispatch(q, k, v, causal=True,
                                      impl=cfg.attention_impl)
-            return out.reshape(B, L, H * D) @ self.o
+            return out.reshape(B, L, H * D) @ self.o.to(dt)
         k_cache, v_cache, idx = cache
         _cache_write(k_cache, k, idx)
         _cache_write(v_cache, v, idx)
@@ -171,12 +182,13 @@ class Attention(nn.Module):
                                      impl=cfg.attention_impl)
         else:
             out = _cached_attention(q, k_cache, v_cache, idx)
-        return out.reshape(B, L, H * D) @ self.o, (k_cache, v_cache)
+        return out.reshape(B, L, H * D) @ self.o.to(dt), (k_cache, v_cache)
 
 
 class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
+        self.dtype = cfg.dtype
         w = lambda i, o: nn.Parameter(  # noqa: E731
             torch.empty(i, o, dtype=cfg.dtype, device=device))
         self.gate = w(cfg.d_model, cfg.d_ff)
@@ -184,7 +196,9 @@ class MLP(nn.Module):
         self.down = w(cfg.d_ff, cfg.d_model)
 
     def forward(self, x):
-        return (F.silu(x @ self.gate) * (x @ self.up)) @ self.down
+        dt = self.dtype
+        return (F.silu(x @ self.gate.to(dt)) * (x @ self.up.to(dt))) \
+            @ self.down.to(dt)
 
 
 class Block(nn.Module):
@@ -220,9 +234,12 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 class TransformerLM(nn.Module):
-    """Parameters are allocated uninitialised on ``device`` (default the
-    card; "meta" allocates nothing): load them with ``load_state_dict``
-    from ``convert.params_from_jax`` or ``convert.init_params``."""
+    """Parameters are allocated uninitialised in ``cfg.dtype`` on
+    ``device`` (default the card; "meta" allocates nothing): load them with
+    ``load_state_dict`` from ``convert.params_from_jax`` or
+    ``convert.init_params``. With ``assign=True`` the loaded tensors'
+    dtype is kept (the trainer loads fp32 masters so); without it they are
+    cast to ``cfg.dtype``."""
 
     def __init__(self, cfg: TransformerConfig, device="cuda"):
         super().__init__()
@@ -250,7 +267,7 @@ class TransformerLM(nn.Module):
         if positions is None:
             start = 0 if cache is None else cache["idx"]
             positions = _positions(start, L, tokens.device).expand(B, L)
-        x = F.embedding(tokens, self.embed)
+        x = F.embedding(tokens, self.embed).to(self.cfg.dtype)
         if cache is not None:
             return self._decode(x, positions, cache, return_hidden,
                                 chunked_prefill)
@@ -259,13 +276,17 @@ class TransformerLM(nn.Module):
         x = self.final_norm(x)
         return x if return_hidden else self._logits(x)
 
+    def unembed_weight(self):
+        """The [d_model, vocab] output projection in ``cfg.dtype``: the
+        embedding's transpose under ``tie_embeddings``."""
+        if self.cfg.tie_embeddings:
+            return self.embed.to(self.cfg.dtype).t()
+        return self.unembed.to(self.cfg.dtype)
+
     def _logits(self, x):
         """Final-norm hidden -> vocab logits, honouring tie_embeddings and
         logits_fp32."""
-        if self.cfg.tie_embeddings:
-            logits = x @ self.embed.t()
-        else:
-            logits = x @ self.unembed
+        logits = x @ self.unembed_weight()
         return logits.float() if self.cfg.logits_fp32 else logits
 
     def _decode(self, x, positions, cache, return_hidden,

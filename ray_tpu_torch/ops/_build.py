@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``ray_tpu_torch/_build/lib<name>-<hash>.so``,
-where the hash covers the source and the flags, so an edited source is
-rebuilt. The library is loaded with ``ctypes``; the caller declares its
-functions' argument types. Nothing here runs at import time.
+where the hash covers the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source is rebuilt. ``build`` starts one ``nvcc``
+per source, all together. The library is loaded with ``ctypes``; the
+caller declares its functions' argument types. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -41,28 +43,41 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name: str) -> Tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
+def build(*names: str) -> Dict[str, Tuple[Path, str]]:
+    """Compile each ``csrc/<name>.cu`` that is not built already, one
+    ``nvcc`` per source, all started together. Returns, for each name, the
     library's path and nvcc's output (its register, shared-memory and
     spill report; empty when nothing was compiled). Raises with that
-    output when nvcc fails."""
-    target = _target(name)
-    if target.exists():
-        return target, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed: {name}: nvcc exited "
-                           f"{proc.returncode}\n{proc.stdout}")
-    os.replace(tmp, target)   # atomic: a reader never sees half a file
-    return target, proc.stdout
+    output when an nvcc fails."""
+    out, procs = {}, {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            out[name] = (target, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (target, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (target, tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, target)   # atomic: a reader never sees half a file
+        out[name] = (target, log)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -70,6 +85,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)[0]))
+            lib = ctypes.CDLL(str(build(name)[name][0]))
             _loaded[name] = lib
         return lib

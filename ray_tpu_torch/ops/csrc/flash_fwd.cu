@@ -33,62 +33,12 @@
 // ever exists, and nothing but o and lse goes back to device memory.
 // Tensor cores (wgmma) and TMA pipelining are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 64;    // keys per tile
-constexpr int NT = 128;   // threads per block: 16 row groups x 8 column groups
-constexpr int RM = 4;     // query rows per thread (BQ / 16)
-constexpr int CN = 8;     // score columns per thread (BK / 8)
-constexpr float NEG_INF = -1e30f;   // the Pallas kernel's mask value
-static_assert(BQ == BK, "load_tile copies BQ rows for Q, K and V tiles");
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// Copy rows [r0, r0 + BQ) of one head into a padded fp32 tile; rows past
-// `len` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t row_stride, int r0,
-                                          int len) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < BQ * D; i += NT) {
-    const int r = i / D, c = i % D;
-    const int row = r0 + r;
-    dst[r * LD + c] = row < len ? to_f(src[row * row_stride + c]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float group_max(float x) {
-  // the 8 lanes of a row group are neighbours: xor 1, 2, 4 stays inside it
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
+constexpr int BQ = TILE;   // query rows per block
+constexpr int BK = TILE;   // keys per tile
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
@@ -172,7 +122,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
       for (int j = 0; j < CN; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        sP[(r0 + i) * LP + cg + 8 * j] = to_f(from_f<T>(p));
+        sP[(r0 + i) * LP + cg + 8 * j] = round_to<T>(p);
       }
       const float alpha = expf(m[i] - m_new);
       l[i] = alpha * l[i] + group_sum(sum);

@@ -13,6 +13,8 @@ batch 8 and prompt 512 (the shape of chip_smoke.py's generator phase):
    traced wall time.
 
 Needs a CUDA card. Prints the card's name and power limit first.
+``trace_train.py`` does the same for a training step and shares the
+timing and kernel-row counting here.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ P = 512      # prompt tokens
 STEPS = 16   # decode steps timed
 
 
-def _ms(fn, n=1):
+def timed_ms(fn, n=1):
+    """Host time per call of ``fn``, bracketed by synchronises."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -48,26 +51,49 @@ def _device_us(evt):
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def _report(title, prof, wall_ms, top=12):
-    # kernels only: an operator's row repeats the time of its kernels
+# kernel families by name: the port's kernels, cuBLAS GEMMs, and the
+# multi-tensor kernels of the optimizer and the gradient norm
+FAMILIES = (("flash attention (ours)", ("flash_",)),
+            ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
+            ("multi-tensor (AdamW, grad norm)", ("multi_tensor_apply",)))
+
+
+def report(title, prof, wall_ms, top=12):
+    """Device time by kernel, by kernel family, and the device's busy
+    share of ``wall_ms``."""
+    # kernels only: an operator's row repeats the time of its kernels, and
+    # so does a user annotation on the device (Optimizer.step#AdamW.step)
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     print(f"{title}: traced wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    family_ms = dict.fromkeys([f for f, _ in FAMILIES] + ["other"], 0.0)
+    for e in events:
+        family = next((f for f, keys in FAMILIES
+                       if any(k in e.key for k in keys)), "other")
+        family_ms[family] += _device_us(e) / 1e3
+    print("  by family: " + ", ".join(
+        f"{f} {ms:.2f} ms ({100 * ms / busy_ms:.1f}%)"
+        for f, ms in family_ms.items()))
     for e in sorted(events, key=_device_us, reverse=True)[:top]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
-    card = subprocess.run(
+def card_line():
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    card = card_line()
     print(f"card: {card}")
     cfg = MODEL_REGISTRY["tpu-7b"]
     model = TransformerLM(cfg, device="meta")
@@ -87,7 +113,7 @@ def main():
             state["logits"], state["cache"] = model(tokens, cache=cache)
 
         prefill()                                  # warm-up
-        prefill_ms = _ms(prefill, 3)
+        prefill_ms = timed_ms(prefill, 3)
         tok = state["logits"][:, -1].argmax(-1)
 
         def decode():
@@ -95,20 +121,20 @@ def main():
                                                     cache=state["cache"])
 
         decode()                                   # warm-up
-        decode_ms = _ms(decode, STEPS)
+        decode_ms = timed_ms(decode, STEPS)
         print(f"generator, B={B}: prefill of {P} tokens {prefill_ms:.2f} ms"
               f", decode step {decode_ms:.2f} ms ({B * 1e3 / decode_ms:.1f} "
               f"tokens/s)")
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall = _ms(prefill)
-        _report("trace: one prefill", prof, wall)
+            wall = timed_ms(prefill)
+        report("trace: one prefill", prof, wall)
         state["cache"]["idx"] = P
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall = _ms(decode, 3)
-        _report("trace: three decode steps", prof, 3 * wall)
+            wall = timed_ms(decode, 3)
+        report("trace: three decode steps", prof, 3 * wall)
         del cache, state
 
     eng = InferenceEngine(model, EngineConfig(
@@ -120,13 +146,13 @@ def main():
     while any(h.first_token_t is None for h in handles):
         eng.step()
     eng.step()                                     # warm-up
-    step_ms = _ms(eng.step, STEPS)
+    step_ms = timed_ms(eng.step, STEPS)
     print(f"engine, {B} slots occupied at ~{P} tokens: decode step "
           f"{step_ms:.2f} ms ({B * 1e3 / step_ms:.1f} tokens/s)")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = _ms(eng.step, 3)
-    _report("trace: three engine decode steps", prof, 3 * wall)
+        wall = timed_ms(eng.step, 3)
+    report("trace: three engine decode steps", prof, 3 * wall)
     for h in handles:
         h.cancel()
     eng.step()

@@ -99,7 +99,6 @@ def test_mixed_devices_raise():
     (dict(Hkv=3), ValueError),                   # H not a multiple of Hkv
     (dict(Lq=0), ValueError),
     (dict(strided=True), ValueError),            # head dim not contiguous
-    (dict(grad=True), NotImplementedError),      # forward-only slice
 ])
 def test_kernel_input_checks(change, err):
     """What the CUDA wrapper refuses before it launches: checked here on
@@ -112,8 +111,6 @@ def test_kernel_input_checks(change, err):
     if c.get("strided"):
         q = torch.zeros(c["B"], c["Lq"], c["H"], 2 * c["D"],
                         dtype=c["dtype"])[..., ::2]
-    if c.get("grad"):
-        q.requires_grad_(True)
     with pytest.raises(err):
         ops._check_kernel_inputs(q, k, v)
     ops._check_kernel_inputs(*(torch.zeros(1, 8, 4, 64, dtype=torch.float32)

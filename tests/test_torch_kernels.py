@@ -1,4 +1,6 @@
-"""The Hopper kernels against their plain versions, on the card.
+"""The Hopper kernels against their plain versions, on the card: the
+flash-attention forward, the dQ and dK/dV backward kernels, and the
+autograd Function that joins them.
 
 Marked ``cuda``: they skip on a machine without a CUDA card. This file
 imports neither JAX nor ray_tpu, so it runs on the card's machine:
@@ -59,3 +61,77 @@ def test_kernel_matches_plain_version_on_card(case):
     tol = 2e-3 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(o.float(), ro.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, rlse, rtol=2e-3, atol=2e-3)
+
+
+def _grad_inputs(case, seed):
+    """q, k, v, dO on the card in the case's dtype, with the forward
+    kernel's o and lse."""
+    c = dict(case)
+    dtype, causal = c.pop("dtype"), c.pop("causal")
+    rng = np.random.RandomState(seed + 100)
+    q, k, v = (torch.from_numpy(x).to("cuda", dtype)
+               for x in _qkv(seed, c["B"], c["Lq"], c["Lk"], c["H"],
+                             c["Hkv"], c["D"]))
+    do = torch.from_numpy(rng.randn(c["B"], c["Lq"], c["H"], c["D"])
+                          .astype(np.float32)).to("cuda", dtype)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal)
+    return q, k, v, o, lse, do, causal
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_backward_kernels_match_plain_version_on_card(case):
+    """On the card: the dQ and dK/dV kernels against their plain version
+    on the same o and lse. fp32 at rtol = atol = 2e-3 (the same arithmetic
+    in another order of sums); bf16 at a relative L2 error of 1e-2 per
+    gradient, since dq/dk/dv are stored in bf16 (a relative step of up to
+    2**-8) and ds is rounded to bf16 from fp32 values that differ in the
+    last bits, so an elementwise bound would have to grow with L."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, o, lse, do, causal = _grad_inputs(case, 6)
+    before = (ops.flash_attention_bwd_dq.launches,
+              ops.flash_attention_bwd_dkv.launches)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (ops.flash_attention_bwd_dq.launches,
+            ops.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.isfinite(g.float()).all(), name
+        if q.dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-3, msg=name)
+        else:
+            assert _rel_l2(g, w) < 1e-2, (name, _rel_l2(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_on_card_matches_plain_version(causal):
+    """fp32, GQA, ragged Lq != Lk: flash_attention's autograd Function on
+    the card (forward kernel, then the two backward kernels) against torch
+    autograd through the plain attention, at rtol = atol = 2e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arrays = _qkv(7, 2, 150, 170, 8, 2, 64)
+    do = torch.from_numpy(np.random.RandomState(8).randn(2, 150, 8, 64)
+                          .astype(np.float32)).cuda()
+    grads = []
+    for fn in (ops.flash_attention, ops.mha_reference):
+        q, k, v = (torch.from_numpy(x).cuda().requires_grad_()
+                   for x in arrays)
+        before = ops.flash_attention_bwd_dkv.launches
+        out = fn(q, k, v, causal=causal)
+        grads.append(torch.autograd.grad(out, (q, k, v), do))
+        launched = ops.flash_attention_bwd_dkv.launches - before
+        assert launched == (1 if fn is ops.flash_attention else 0)
+    for g, w, name in zip(*grads, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-3, msg=name)
