@@ -7,13 +7,23 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. The card's name and power limit (from nvidia-smi), then the build of
    every kernel from the sources under ray_tpu_torch/ops/csrc (one nvcc
-   per source, all started together) with each one's ptxas report.
+   per source, all started together) with each one's ptxas report, and
+   the SASS check: the toolkit's cuobjdump lists, for every kernel function
+   of each library, whether its machine code holds HGMMA (wgmma, the
+   tensor cores), UTMALDG (TMA loads) and UTMASTG (TMA stores). The bf16
+   kernels of B1 and B3 must hold HGMMA and UTMALDG; a missing cuobjdump
+   fails the run.
 2. Each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes and a few edge shapes, and timed beside its plain version,
-   the least time the card could take (bound) and one PyTorch library call
-   computing the same function: the flash forward (B1) at the tpu-7b
-   prefill shape, the dQ (B2) and dK/dV (B3) backward kernels at the
-   tpu-3b training shape.
+   paths' shapes and edge shapes (ragged lengths, a length shorter than one
+   tile, Lq != Lk across a 128-row boundary, G in {1, 3, 4}, D in {64,
+   128}, q/k/v as views of one fused projection), a view that breaks TMA's
+   16-byte stride rule must raise ValueError; then each kernel is timed in
+   turns with one PyTorch library call computing the same function
+   (kernel, library, library, kernel; median of 5 rounds, spread printed),
+   beside its plain version and the least time the card could take
+   (bound): the flash forward (B1) at the tpu-7b prefill shape and the
+   tpu-3b training shape, the dQ (B2) and dK/dV (B3) backward kernels at
+   the tpu-3b training shape.
 3. The generator at the full width and depth of tpu-7b (32 layers, bf16,
    seeded random weights): make_generate_fn with batch 8, prompt 512, 32
    new tokens, greedy. Its prefill must launch the flash kernel once per
@@ -31,7 +41,9 @@ Phases, each of which must pass (any failure exits non-zero):
    and loss_chunk 256, 5 steps of batch 4 x 1024 on one repeated batch.
    Every step must launch each of the three kernels once per layer, and
    the loss must fall. Step time, tokens/s and peak memory are printed.
-7. A JSON line of the kernels, the card line again, and last the result.
+7. A JSON line of the kernels (with each one's TFLOP/s, its share of the
+   bound and whether it runs on the tensor cores), the card line again,
+   and last the result.
 
 The serving model is freed before the training phases. Launch counts are
 zeroed just before each main-path phase (3, 4, 6) and read just after it;
@@ -41,6 +53,8 @@ launches made to compare or time a kernel (2, 5) do not count.
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -95,6 +109,11 @@ TRAIN_GRAD_REL_L2 = 5e-2
 LOSS_DROP = 0.1
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# kernels whose bf16 instantiation must run on the tensor cores, fed by TMA
+TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+# rounds of kernel, library, library, kernel when a kernel is timed beside
+# its library call
+TURN_ROUNDS = 5
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
@@ -132,6 +151,78 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def median_spread(times):
+    times = sorted(times)
+    return float(np.median(times)), times[0], times[-1]
+
+
+def time_in_turns(kernel, library, rounds=TURN_ROUNDS):
+    """Kernel and library call timed alternately (kernel, library, library,
+    kernel) for `rounds` rounds, so that a drift of the card's clocks or
+    of the allocator hits both alike. Returns (median, min, max) of each."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(cuda_ms(kernel))
+        ls.append(cuda_ms(library))
+        ls.append(cuda_ms(library))
+        ks.append(cuda_ms(kernel))
+    return median_spread(ks), median_spread(ls)
+
+
+def fmt_turns(kernel, library):
+    (km, klo, khi), (lm, llo, lhi) = kernel, library
+    return (f"kernel {km:.4f} ms [{klo:.4f}, {khi:.4f}], library {lm:.4f} ms "
+            f"[{llo:.4f}, {lhi:.4f}] (median [min, max] of {2 * TURN_ROUNDS} "
+            f"in turns), kernel/library {km / lm:.2f}x")
+
+
+def find_cuobjdump():
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    if os.path.exists(path):
+        return path
+    fail("cuobjdump not found on PATH or in $CUDA_HOME/bin: the SASS check "
+         "of the tensor-core kernels cannot run")
+
+
+def sass_check(built):
+    """Phase 1: per kernel function of each library, whether its SASS holds
+    HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store). Fails if the
+    bf16 (tensor-core) function of B1 or B3 lacks HGMMA or UTMALDG. Returns
+    {kernel: True if any of its functions runs on the tensor cores}."""
+    tool = find_cuobjdump()
+    tensor_cores = {}
+    for name, (path, _) in built.items():
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        found, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :", 1)[1].strip()
+                found[fn] = set()
+            elif fn is not None:
+                found[fn].update(op for op in ("HGMMA", "UTMALDG", "UTMASTG")
+                                 if op in line)
+        if not found:
+            fail(f"cuobjdump found no kernel function in {path}")
+        for fn, ops_found in sorted(found.items()):
+            tc = "_tc_kernel" in fn
+            print(f"sass {name}: {'bf16 wgmma+TMA' if tc else 'FMA'} function "
+                  f"{fn}: " + ", ".join(
+                      f"{op} {'yes' if op in ops_found else 'no'}"
+                      for op in ("HGMMA", "UTMALDG", "UTMASTG")), flush=True)
+            if tc and not {"HGMMA", "UTMALDG"} <= ops_found:
+                fail(f"{name}: the bf16 function {fn} lacks HGMMA or UTMALDG")
+        tensor_cores[name] = any("HGMMA" in f for f in found.values())
+    for name in TENSOR_CORE_KERNELS:
+        if not tensor_cores.get(name):
+            fail(f"{name}: no function on the tensor cores")
+    return tensor_cores
+
+
 def kept_pairs(q, k, causal):
     """(query, key) pairs the mask keeps, over batch and query heads."""
     B, Lq, H, _ = q.shape
@@ -151,30 +242,33 @@ def roofline_ms(flops, nbytes, dtype):
                                  else "operations")
 
 
-def attention_bound_ms(q, k, causal):
-    """Forward: q, k, v read and o written once (+ fp32 lse), against
-    4*D FLOPs (two products) per kept pair."""
+def attention_work(q, k, causal):
+    """Forward: (FLOPs, bytes): q, k, v read and o written once (+ fp32
+    lse), against 4*D FLOPs (two products) per kept pair."""
     B, Lq, H, D = q.shape
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
         + B * H * Lq * 4
-    return roofline_ms(4.0 * D * kept_pairs(q, k, causal), nbytes,
-                       q.dtype)
+    return 4.0 * D * kept_pairs(q, k, causal), nbytes
 
 
-def bwd_bound_ms(q, k, causal, kernel):
-    """Backward kernels: each input read once and each output written once
-    (dQ: q, k, v, dO in, dq out; dK/dV: q, k, v, dO in, dk, dv out; both
-    read the fp32 lse and delta), against 2*D FLOPs per product per kept
-    pair: three products for dQ (s, dp, dq), four for dK/dV (s, dp, dv,
-    dk)."""
+def bwd_work(q, k, causal, kernel):
+    """Backward kernels: (FLOPs, bytes): each input read once and each
+    output written once (dQ: q, k, v, dO in, dq out; dK/dV: q, k, v, dO in,
+    dk, dv out; both read the fp32 lse and delta), against 2*D FLOPs per
+    product per kept pair: three products for dQ (s, dp, dq), four for
+    dK/dV (s, dp, dv, dk)."""
     B, Lq, H, D = q.shape
     q_n, k_n = q.numel(), k.numel()
     elems = 3 * q_n + 2 * k_n if kernel == "flash_bwd_dq" \
         else 2 * q_n + 4 * k_n
     products = 3 if kernel == "flash_bwd_dq" else 4
     nbytes = elems * q.element_size() + 2 * B * H * Lq * 4
-    return roofline_ms(2.0 * D * products * kept_pairs(q, k, causal),
-                       nbytes, q.dtype)
+    return 2.0 * D * products * kept_pairs(q, k, causal), nbytes
+
+
+def rates(flops, bound_ms, ms):
+    """The record's achieved TFLOP/s and share of the bound."""
+    return {"tflops": flops / (ms * 1e-3) / 1e12, "bound_share": bound_ms / ms}
 
 
 def wrappers(ops):
@@ -192,11 +286,68 @@ def read_counts(ops):
     return {name: fn.launches for name, fn in wrappers(ops).items()}
 
 
-def check_flash_kernel(ops):
+# the tensor-core tiling's edges, run by the forward and the backward
+# checks: a length that is a multiple of 64 but not of 128, one shorter
+# than a tile, Lq != Lk across a 128-row boundary both ways, G in {1, 3,
+# 4}, and q, k, v as strided views of one fused [B, L, H + 2 Hkv, D]
+# projection ("fused" cases, Lq == Lk)
+EDGE_CASES = [  # name, B, Lq, Lk, H, Hkv, D, dtype, causal
+    ("L=192", 2, 192, 192, 24, 8, 128, torch.bfloat16, True),
+    ("L=17 G=3", 2, 17, 17, 12, 4, 64, torch.bfloat16, True),
+    ("Lq=129 Lk=257 causal G=4", 2, 129, 257, 16, 4, 128, torch.bfloat16,
+     True),
+    ("Lq=129 Lk=257 non-causal G=1", 2, 129, 257, 8, 8, 64, torch.bfloat16,
+     False),
+    ("Lq=257 Lk=129 causal G=3", 2, 257, 129, 12, 4, 128, torch.bfloat16,
+     True),
+    ("Lq=257 Lk=129 non-causal G=4", 2, 257, 129, 16, 4, 64,
+     torch.bfloat16, False),
+    ("fused qkv view G=3", 2, 256, 256, 24, 8, 128, torch.bfloat16, True),
+    ("fused qkv view D=64 G=1", 1, 130, 130, 8, 8, 64, torch.bfloat16,
+     False),
+]
+
+
+def case_inputs(g, name, B, Lq, Lk, H, Hkv, D, dtype):
+    """q, k, v on the card, seeded; for a "fused" case, views of one
+    [B, L, H + 2 Hkv, D] tensor, as a fused QKV projection gives them."""
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.float32).to(dtype)
+    if name.startswith("fused"):
+        qkv = rand(B, Lq, H + 2 * Hkv, D)
+        return qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    return rand(B, Lq, H, D), rand(B, Lk, Hkv, D), rand(B, Lk, Hkv, D)
+
+
+def check_tma_refusal(ops):
+    """A bf16 operand whose head stride is not a multiple of 16 bytes (a
+    view of [..., 130] storage) must raise ValueError before any launch."""
+    q = torch.zeros(2, 64, 8, 130, device="cuda", dtype=torch.bfloat16)
+    q = q[..., :128]
+    k = torch.zeros(2, 64, 2, 128, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(2, 8, 64, device="cuda")
+    before = read_counts(ops)
+    for name, call in (
+            ("flash_fwd", lambda: ops.flash_attention_fwd(q, k, k, True)),
+            ("flash_bwd_dkv", lambda: ops.flash_attention_bwd_dkv(
+                q, k, k, q.contiguous(), lse, lse, True))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"{name}: a head stride of 260 bytes is refused: {e}",
+                  flush=True)
+        else:
+            fail(f"{name} took a view that breaks TMA's 16-byte rule")
+    if read_counts(ops) != before:
+        fail("a refused call launched a kernel")
+
+
+def check_flash_kernel(ops, tensor_cores):
     """Phase 2: kernel vs plain version on the card, at the shapes of both
     main paths (tpu-7b prefill, tpu-3b training) and edge shapes; timing
-    at the tpu-7b prefill shape. Returns the kernel's record (without
-    launches)."""
+    at the tpu-7b prefill shape, in turns with SDPA. Returns the kernel's
+    record (without launches)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     cases = [  # name, B, Lq, Lk, H, Hkv, D, dtype, causal
         ("tpu-7b prefill", 8, 512, 512, 32, 8, 128, torch.bfloat16, True),
@@ -211,13 +362,10 @@ def check_flash_kernel(ops):
         ("fp32 ragged", 2, 200, 200, 8, 2, 128, torch.float32, True),
         ("fp32 Lq>Lk non-causal", 2, 300, 130, 8, 2, 64, torch.float32,
          False),
-    ]
+    ] + EDGE_CASES
     record = None
     for name, B, Lq, Lk, H, Hkv, D, dtype, causal in cases:
-        def rand(*shape):
-            return torch.randn(shape, generator=g, device="cuda",
-                               dtype=torch.float32).to(dtype)
-        q, k, v = rand(B, Lq, H, D), rand(B, Lk, Hkv, D), rand(B, Lk, Hkv, D)
+        q, k, v = case_inputs(g, name, B, Lq, Lk, H, Hkv, D, dtype)
         before = ops.flash_attention_fwd.launches
         o, lse = ops.flash_attention_fwd(q, k, v, causal)
         torch.cuda.synchronize()
@@ -236,29 +384,32 @@ def check_flash_kernel(ops):
         if not ok or not torch.isfinite(o.float()).all():
             fail(f"flash_fwd {name} disagrees with its plain version")
         if record is None:   # the main path's shape: time it
-            ms = cuda_ms(lambda: ops.flash_attention_fwd(q, k, v, causal))
-            plain_ms = cuda_ms(
-                lambda: ops.flash_attention_fwd_reference(q, k, v, causal))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
 
             def sdpa():
                 return torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)
-            library_ms = cuda_ms(sdpa)
+            kern, lib = time_in_turns(
+                lambda: ops.flash_attention_fwd(q, k, v, causal), sdpa)
+            plain_ms = cuda_ms(
+                lambda: ops.flash_attention_fwd_reference(q, k, v, causal))
             sdpa_err = (sdpa().transpose(1, 2).float() - ro.float()
                         ).abs().max().item()
-            bound_ms, bound_by = attention_bound_ms(q, k, causal)
-            print(f"flash_fwd {name} timing: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
-                  f"(max|sdpa-plain|={sdpa_err:.3e}), bound {bound_ms:.4f} "
-                  f"ms by {bound_by}", flush=True)
+            flops, nbytes = attention_work(q, k, causal)
+            bound_ms, bound_by = roofline_ms(flops, nbytes, q.dtype)
+            print(f"flash_fwd {name} timing: {fmt_turns(kern, lib)}; plain "
+                  f"{plain_ms:.4f} ms; max|sdpa-plain|={sdpa_err:.3e}; bound "
+                  f"{bound_ms:.4f} ms by {bound_by}", flush=True)
             record = {"name": "flash_fwd", "route": "cuda",
                       "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
                       "replaces": "ray_tpu/ops/attention.py:54",
-                      "max_abs_err": err_o, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms}
+                      "max_abs_err": err_o, "ms": kern[0],
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": lib[0],
+                      **rates(flops, bound_ms, kern[0]),
+                      "tensor_cores": tensor_cores["flash_fwd"]}
         del q, k, v, o, lse, ro, rlse
+    check_tma_refusal(ops)
     torch.cuda.empty_cache()
     return record
 
@@ -268,12 +419,11 @@ def rel_l2(got, want):
             / want.float().norm().clamp_min(1e-30)).item()
 
 
-def check_bwd_kernels(ops):
+def check_bwd_kernels(ops, tensor_cores):
     """Phase 2, backward: the dQ and dK/dV kernels against their plain
     version on the card, on the forward kernel's o and lse (each held to
-    the plain forward's first); timing at the
-    tpu-3b training shape. Returns the two kernels' records (without
-    launches)."""
+    the plain forward's first); timing at the tpu-3b training shape.
+    Returns the two kernels' records (without launches)."""
     g = torch.Generator(device="cuda").manual_seed(3)
     cases = [  # name, B, Lq, Lk, H, Hkv, D, dtype, causal
         ("tpu-3b training", 4, 1024, 1024, 24, 8, 128, torch.bfloat16,
@@ -289,14 +439,12 @@ def check_bwd_kernels(ops):
         ("fp32 Lq<Lk causal", 1, 130, 300, 4, 1, 64, torch.float32, True),
         ("fp32 Lq>Lk non-causal", 2, 300, 130, 8, 2, 64, torch.float32,
          False),
-    ]
+    ] + EDGE_CASES
     records = None
     for name, B, Lq, Lk, H, Hkv, D, dtype, causal in cases:
-        def rand(*shape):
-            return torch.randn(shape, generator=g, device="cuda",
-                               dtype=torch.float32).to(dtype)
-        q, k, v = rand(B, Lq, H, D), rand(B, Lk, Hkv, D), rand(B, Lk, Hkv, D)
-        do = rand(B, Lq, H, D)
+        q, k, v = case_inputs(g, name, B, Lq, Lk, H, Hkv, D, dtype)
+        do = torch.randn((B, Lq, H, D), generator=g, device="cuda",
+                         dtype=torch.float32).to(dtype)
         o, lse = ops.flash_attention_fwd(q, k, v, causal)
         # the backward reads the forward kernel's o and lse: hold them to
         # their plain version first, so that both backwards are given right
@@ -339,30 +487,18 @@ def check_bwd_kernels(ops):
             fail(f"flash_bwd {name} disagrees with its plain version")
         if records is None:   # the training path's shape: time it
             records = time_bwd_kernels(ops, q, k, v, o, lse, do, causal,
-                                       errs)
+                                       errs, tensor_cores)
         del q, k, v, do, o, lse, got, want
     torch.cuda.empty_cache()
     return records
 
 
-def time_bwd_kernels(ops, q, k, v, o, lse, do, causal, errs):
-    """B2 and B3 alone, their plain versions, their bounds, and PyTorch's
-    backward of scaled_dot_product_attention (dq, dk and dv in one call, so
-    the same library time stands beside both); B1 at this shape too."""
+def time_bwd_kernels(ops, q, k, v, o, lse, do, causal, errs, tensor_cores):
+    """B2 and B3 each timed in turns with PyTorch's backward of
+    scaled_dot_product_attention (dq, dk and dv in one call, so the same
+    library call stands beside both), their plain versions and bounds; B1
+    at this shape too, in turns with SDPA's forward."""
     delta = ops._delta(o, do)
-    ms = {
-        "flash_bwd_dq": cuda_ms(lambda: ops.flash_attention_bwd_dq(
-            q, k, v, do, lse, delta, causal)),
-        "flash_bwd_dkv": cuda_ms(lambda: ops.flash_attention_bwd_dkv(
-            q, k, v, do, lse, delta, causal)),
-    }
-    plain_ms = {
-        "flash_bwd_dq": cuda_ms(lambda: ops.flash_attention_bwd_dq_reference(
-            q, k, v, do, lse, delta, causal)),
-        "flash_bwd_dkv": cuda_ms(
-            lambda: ops.flash_attention_bwd_dkv_reference(
-                q, k, v, do, lse, delta, causal)),
-    }
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(
@@ -371,40 +507,58 @@ def time_bwd_kernels(ops, q, k, v, o, lse, do, causal, errs):
 
     def sdpa_bwd():
         return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
-    library_ms = cuda_ms(sdpa_bwd)
+    turns = {
+        "flash_bwd_dq": time_in_turns(lambda: ops.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, causal), sdpa_bwd),
+        "flash_bwd_dkv": time_in_turns(lambda: ops.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, causal), sdpa_bwd),
+    }
+    plain_ms = {
+        "flash_bwd_dq": cuda_ms(lambda: ops.flash_attention_bwd_dq_reference(
+            q, k, v, do, lse, delta, causal)),
+        "flash_bwd_dkv": cuda_ms(
+            lambda: ops.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, causal)),
+    }
     want = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
     sdpa_rel = [rel_l2(x.transpose(1, 2), w)
                 for x, w in zip(sdpa_bwd(), want)]
-    fwd_ms = cuda_ms(lambda: ops.flash_attention_fwd(q, k, v, causal))
-    fwd_plain_ms = cuda_ms(
-        lambda: ops.flash_attention_fwd_reference(q, k, v, causal))
-    fwd_sdpa_ms = cuda_ms(
+    fwd = time_in_turns(
+        lambda: ops.flash_attention_fwd(q, k, v, causal),
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt.detach(), kt.detach(), vt.detach(), is_causal=causal,
             enable_gqa=True))
-    fwd_bound, fwd_by = attention_bound_ms(q, k, causal)
-    print(f"flash_fwd at the tpu-3b training shape: kernel {fwd_ms:.4f} ms, "
-          f"plain {fwd_plain_ms:.4f} ms, sdpa {fwd_sdpa_ms:.4f} ms, bound "
-          f"{fwd_bound:.4f} ms by {fwd_by}", flush=True)
-    print(f"sdpa backward at the tpu-3b training shape: {library_ms:.4f} ms "
-          f"for dq, dk and dv together; rel L2 vs plain dq/dk/dv "
-          f"{sdpa_rel[0]:.3e}/{sdpa_rel[1]:.3e}/{sdpa_rel[2]:.3e}",
+    fwd_plain_ms = cuda_ms(
+        lambda: ops.flash_attention_fwd_reference(q, k, v, causal))
+    fwd_flops, fwd_bytes = attention_work(q, k, causal)
+    fwd_bound, fwd_by = roofline_ms(fwd_flops, fwd_bytes, q.dtype)
+    print(f"flash_fwd at the tpu-3b training shape: {fmt_turns(*fwd)}, "
+          f"{fwd_flops / (fwd[0][0] * 1e-3) / 1e12:.1f} TFLOP/s; plain "
+          f"{fwd_plain_ms:.4f} ms; bound {fwd_bound:.4f} ms by {fwd_by}",
           flush=True)
+    print(f"sdpa backward at the tpu-3b training shape: dq, dk and dv in one "
+          f"call; rel L2 vs plain dq/dk/dv {sdpa_rel[0]:.3e}/"
+          f"{sdpa_rel[1]:.3e}/{sdpa_rel[2]:.3e}", flush=True)
     records = []
     for kernel, src, line, err in (
             ("flash_bwd_dq", "flash_bwd_dq.cu", 94, errs[0]),
             ("flash_bwd_dkv", "flash_bwd_dkv.cu", 129, max(errs[1:]))):
-        bound, by = bwd_bound_ms(q, k, causal, kernel)
-        print(f"{kernel} tpu-3b training timing: kernel {ms[kernel]:.4f} ms,"
-              f" plain {plain_ms[kernel]:.4f} ms, sdpa backward "
-              f"{library_ms:.4f} ms, bound {bound:.4f} ms by {by}",
+        flops, nbytes = bwd_work(q, k, causal, kernel)
+        bound, by = roofline_ms(flops, nbytes, q.dtype)
+        kern, lib = turns[kernel]
+        print(f"{kernel} tpu-3b training timing: {fmt_turns(kern, lib)} "
+              f"(library: sdpa backward), "
+              f"{flops / (kern[0] * 1e-3) / 1e12:.1f} TFLOP/s; plain "
+              f"{plain_ms[kernel]:.4f} ms; bound {bound:.4f} ms by {by}",
               flush=True)
         records.append({"name": kernel, "route": "cuda",
                         "source": f"ray_tpu_torch/ops/csrc/{src}",
                         "replaces": f"ray_tpu/ops/attention.py:{line}",
-                        "max_abs_err": err, "ms": ms[kernel],
+                        "max_abs_err": err, "ms": kern[0],
                         "plain_ms": plain_ms[kernel], "bound_ms": bound,
-                        "bound_by": by, "library_ms": library_ms})
+                        "bound_by": by, "library_ms": lib[0],
+                        **rates(flops, bound, kern[0]),
+                        "tensor_cores": tensor_cores[kernel]})
     return records
 
 
@@ -705,9 +859,10 @@ def main():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    tensor_cores = sass_check(built)
 
-    records = {"flash_fwd": check_flash_kernel(ops)}
-    for record in check_bwd_kernels(ops):
+    records = {"flash_fwd": check_flash_kernel(ops, tensor_cores)}
+    for record in check_bwd_kernels(ops, tensor_cores):
         records[record["name"]] = record
     model, gen_launches = run_generator(models, ops)
     eng_launches = run_engine(model, models, inference, ops, card)

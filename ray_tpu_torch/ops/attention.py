@@ -10,8 +10,13 @@ CUDA tensor launches the hand-written Hopper kernels or raises; only a
 tensor that lies on the CPU takes the plain PyTorch versions
 (``flash_attention_fwd_reference``, ``flash_attention_bwd_reference``).
 The kernels mask ragged edges themselves, so there is no routing by shape.
-Each kernel's wrapper (``flash_attention_fwd``, ``flash_attention_bwd_dq``,
-``flash_attention_bwd_dkv``) counts its launches in ``.launches``.
+In bf16 the forward and the dK/dV kernels run on the tensor cores (wgmma)
+and read their operands through TMA tensor maps, so their wrappers refuse
+(ValueError) an operand TMA cannot read: see ``tma_layout_error``; fp32
+and the dQ kernel keep FMA code that takes any strides with a contiguous
+head dim. Each kernel's wrapper (``flash_attention_fwd``,
+``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``) counts its
+launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -103,6 +108,32 @@ def _check_kernel_inputs(q, k, v):
             raise ValueError(f"{name}'s head dim must be contiguous")
 
 
+def tma_layout_error(strides, ptr: int, elem_size: int) -> Optional[str]:
+    """Why a [B, L, H, D] tensor cannot be read or written through a TMA
+    tensor map, or None if it can: the base address must be 16-byte
+    aligned, the head dim contiguous, and every other stride a multiple of
+    16 bytes. Strides in elements, the address in bytes."""
+    if ptr % 16:
+        return f"base address {ptr:#x} is not 16-byte aligned"
+    if strides[-1] != 1:
+        return "the head dim is not contiguous"
+    for dim, st in enumerate(strides[:-1]):
+        if (st * elem_size) % 16:
+            return (f"stride {st} of dim {dim} is {st * elem_size} bytes, "
+                    f"not a multiple of 16")
+    return None
+
+
+def _check_tma(**tensors):
+    """Raise ValueError for a bf16 kernel operand that TMA cannot take."""
+    for name, t in tensors.items():
+        why = tma_layout_error(t.stride(), t.data_ptr(), t.element_size())
+        if why:
+            raise ValueError(f"{name} {tuple(t.shape)} with strides "
+                             f"{t.stride()}: {why} (the bf16 kernels read "
+                             f"it through TMA)")
+
+
 def _check_bwd_inputs(q, do, lse, delta):
     """What the backward kernels take beyond ``_check_kernel_inputs``:
     dO like q with a contiguous head dim, lse and delta [B, H, Lq] fp32
@@ -175,7 +206,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     """Flash-attention forward: (o [B,Lq,H,D] in q's dtype, lse [B,H,Lq]
     fp32). CPU tensors take ``flash_attention_fwd_reference``; CUDA tensors
     launch ``csrc/flash_fwd.cu`` on the current stream (and count the launch
-    in ``flash_attention_fwd.launches``) or raise."""
+    in ``flash_attention_fwd.launches``) or raise. In bf16, q, k and v must
+    meet ``tma_layout_error``'s rule."""
     D = q.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
     devices = {q.device.type, k.device.type, v.device.type}
@@ -185,6 +217,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}, {k.device}, {v.device}")
     _check_kernel_inputs(q, k, v)
+    if q.dtype == torch.bfloat16:
+        _check_tma(q=q, k=k, v=v)
     B, Lq, H, _ = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     o = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
@@ -315,12 +349,15 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
     ``flash_attention_bwd_dkv_reference``; CUDA tensors launch
     ``csrc/flash_bwd_dkv.cu`` on the current stream (and count the launch
     in ``flash_attention_bwd_dkv.launches``) or raise. dO's head dim must
-    be contiguous."""
+    be contiguous; in bf16, q, k, v and dO must meet
+    ``tma_layout_error``'s rule."""
     D = q.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
     if _bwd_devices(q, k, v, do, lse, delta) == "cpu":
         return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
                                                  causal, scale)
+    if q.dtype == torch.bfloat16:
+        _check_tma(q=q, k=k, v=v, do=do)
     B, Lq, H, _ = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     dk = torch.empty((B, Lk, Hkv, D), dtype=k.dtype, device=q.device)

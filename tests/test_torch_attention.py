@@ -115,3 +115,27 @@ def test_kernel_input_checks(change, err):
         ops._check_kernel_inputs(q, k, v)
     ops._check_kernel_inputs(*(torch.zeros(1, 8, 4, 64, dtype=torch.float32)
                                for _ in range(3)))
+
+
+@pytest.mark.parametrize("strides,ptr,why", [
+    # contiguous [2, 200, 8, 128] and [1, 17, 1, 64] bf16, and a view of a
+    # fused [2, 200, 10, 64] projection: every stride a multiple of 16 bytes
+    ((204800, 1024, 128, 1), 0x7f0000000000, None),
+    ((1088, 64, 64, 1), 0x7f0000000010, None),
+    ((128000, 640, 64, 1), 0x7f0000000080, None),
+    ((2048, 256, 64, 1), 0x7f0000000008, "16-byte aligned"),
+    ((4160, 520, 130, 1), 0x7f0000000000, "dim 2"),
+    ((4160, 260, 64, 1), 0x7f0000000000, "dim 1"),
+    ((2049, 256, 64, 1), 0x7f0000000000, "dim 0"),
+    ((4096, 512, 128, 2), 0x7f0000000000, "contiguous"),
+])
+def test_tma_layout_rule(strides, ptr, why):
+    """The rule the bf16 wrappers hold an operand to before a TMA tensor
+    map is made of it (base 16-byte aligned, head dim contiguous, every
+    other stride a multiple of 16 bytes), fed strides and addresses made
+    up by hand."""
+    got = ops.tma_layout_error(strides, ptr, 2)
+    if why is None:
+        assert got is None
+    else:
+        assert got is not None and why in got, got

@@ -1,6 +1,8 @@
 """The Hopper kernels against their plain versions, on the card: the
 flash-attention forward, the dQ and dK/dV backward kernels, and the
-autograd Function that joins them.
+autograd Function that joins them; the edges of the bf16 tensor-core
+tiling, fused-projection views, and the refusal of a view that TMA cannot
+read.
 
 Marked ``cuda``: they skip on a machine without a CUDA card. This file
 imports neither JAX nor ray_tpu, so it runs on the card's machine:
@@ -110,6 +112,102 @@ def test_backward_kernels_match_plain_version_on_card(case):
             torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-3, msg=name)
         else:
             assert _rel_l2(g, w) < 1e-2, (name, _rel_l2(g, w))
+
+
+# the bf16 tensor-core tiling's edges (128-row q tiles in the forward,
+# 128-key blocks of 64-row q tiles in dK/dV): a length that is a multiple
+# of 64 but not of 128, one shorter than a tile, Lq != Lk across a 128-row
+# boundary both ways, causal and not, G in {1, 3, 4}, D in {64, 128}
+EDGE_CASES = [
+    dict(B=2, Lq=192, Lk=192, H=8, Hkv=2, D=128, causal=True),
+    dict(B=2, Lq=17, Lk=17, H=6, Hkv=2, D=64, causal=True),
+    dict(B=1, Lq=129, Lk=257, H=8, Hkv=2, D=128, causal=True),
+    dict(B=1, Lq=129, Lk=257, H=4, Hkv=4, D=64, causal=False),
+    dict(B=1, Lq=257, Lk=129, H=6, Hkv=2, D=128, causal=True),
+    dict(B=1, Lq=257, Lk=129, H=4, Hkv=1, D=64, causal=False),
+]
+
+
+def _edge_inputs(case, seed, fused=False):
+    """bf16 q, k, v, dO on the card; with fused, q, k and v are strided
+    views of one [B, L, H + 2 Hkv, D] tensor (Lq == Lk), as a fused QKV
+    projection gives them."""
+    c = dict(case)
+    B, Lq, Lk, H, Hkv, D = (c[n] for n in ("B", "Lq", "Lk", "H", "Hkv",
+                                             "D"))
+    rng = np.random.RandomState(seed)
+    if fused:
+        qkv = torch.from_numpy(rng.randn(B, Lq, H + 2 * Hkv, D)
+                               .astype(np.float32)).to("cuda", torch.bfloat16)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    else:
+        q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+                   for x in _qkv(seed, B, Lq, Lk, H, Hkv, D))
+    do = torch.from_numpy(rng.randn(B, Lq, H, D).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    return q, k, v, do, c["causal"]
+
+
+def _check_edge(q, k, v, do, causal):
+    """Forward and both backward kernels against their plain versions, at
+    the bounds of the tests above: bf16 o at 2e-2, lse at 2e-3, each
+    gradient at a relative L2 error of 1e-2."""
+    launches = ops.flash_attention_fwd.launches
+    o, lse = ops.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_fwd.launches == launches + 1
+    ro, rlse = ops.flash_attention_fwd_reference(q, k, v, causal)
+    torch.testing.assert_close(o.float(), ro.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, rlse, rtol=2e-3, atol=2e-3)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = ops.flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel_l2(g, w) < 1e-2, (name, _rel_l2(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_tensor_core_tiling_edges_on_card(case):
+    """On the card: the bf16 tensor-core kernels at the edges of their
+    tiling, against the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _check_edge(*_edge_inputs(case, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_fused_projection_views_on_card(D):
+    """On the card: q, k, v as views of one fused projection, whose TMA
+    tensor maps get non-trivial (batch, seq, head) strides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    case = dict(B=2, Lq=200, Lk=200, H=6, Hkv=2, D=D, causal=True)
+    q, k, v, do, causal = _edge_inputs(case, 10, fused=True)
+    assert not q.is_contiguous() and q.stride(1) == 10 * D
+    _check_edge(q, k, v, do, causal)
+
+
+@pytest.mark.cuda
+def test_stride_off_the_16_byte_rule_raises_on_card():
+    """On the card: a bf16 view whose head stride is 260 bytes (not a
+    multiple of 16) raises ValueError in the forward and the dK/dV
+    wrappers, and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q = torch.zeros(2, 64, 8, 130, device="cuda",
+                    dtype=torch.bfloat16)[..., :128]
+    k = torch.zeros(2, 64, 2, 128, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(2, 8, 64, device="cuda")
+    launches = (ops.flash_attention_fwd.launches,
+                ops.flash_attention_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.flash_attention_fwd(q, k, k, True)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ops.flash_attention_bwd_dkv(q, k, k, q.contiguous(), lse, lse, True)
+    assert (ops.flash_attention_fwd.launches,
+            ops.flash_attention_bwd_dkv.launches) == launches
 
 
 @pytest.mark.cuda
