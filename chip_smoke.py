@@ -11,8 +11,8 @@ Phases, each of which must pass (any failure exits non-zero):
    the SASS check: the toolkit's cuobjdump lists, for every kernel function
    of each library, whether its machine code holds HGMMA (wgmma, the
    tensor cores), UTMALDG (TMA loads) and UTMASTG (TMA stores). The bf16
-   kernels of B1 and B3 must hold HGMMA and UTMALDG; a missing cuobjdump
-   fails the run.
+   kernels of B1, B2 and B3 must hold HGMMA and UTMALDG; a missing
+   cuobjdump fails the run.
 2. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and edge shapes (ragged lengths, a length shorter than one
    tile, Lq != Lk across a 128-row boundary, G in {1, 3, 4}, D in {64,
@@ -108,9 +108,8 @@ TRAIN_GRAD_REL_L2 = 5e-2
 # step (tests/test_model_parallel.py)
 LOSS_DROP = 0.1
 
+# every kernel's bf16 instantiation must run on the tensor cores, fed by TMA
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-# kernels whose bf16 instantiation must run on the tensor cores, fed by TMA
-TENSOR_CORE_KERNELS = ("flash_fwd", "flash_bwd_dkv")
 # rounds of kernel, library, library, kernel when a kernel is timed beside
 # its library call
 TURN_ROUNDS = 5
@@ -190,9 +189,10 @@ def find_cuobjdump():
 
 def sass_check(built):
     """Phase 1: per kernel function of each library, whether its SASS holds
-    HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store). Fails if the
-    bf16 (tensor-core) function of B1 or B3 lacks HGMMA or UTMALDG. Returns
-    {kernel: True if any of its functions runs on the tensor cores}."""
+    HGMMA (wgmma), UTMALDG (TMA load) and UTMASTG (TMA store). Fails if a
+    bf16 (tensor-core) function of B1, B2 or B3 lacks HGMMA or UTMALDG.
+    Returns {kernel: True if any of its functions runs on the tensor
+    cores}."""
     tool = find_cuobjdump()
     tensor_cores = {}
     for name, (path, _) in built.items():
@@ -217,7 +217,7 @@ def sass_check(built):
             if tc and not {"HGMMA", "UTMALDG"} <= ops_found:
                 fail(f"{name}: the bf16 function {fn} lacks HGMMA or UTMALDG")
         tensor_cores[name] = any("HGMMA" in f for f in found.values())
-    for name in TENSOR_CORE_KERNELS:
+    for name in KERNELS:
         if not tensor_cores.get(name):
             fail(f"{name}: no function on the tensor cores")
     return tensor_cores
@@ -330,6 +330,8 @@ def check_tma_refusal(ops):
     before = read_counts(ops)
     for name, call in (
             ("flash_fwd", lambda: ops.flash_attention_fwd(q, k, k, True)),
+            ("flash_bwd_dq", lambda: ops.flash_attention_bwd_dq(
+                q, k, k, q.contiguous(), lse, lse, True)),
             ("flash_bwd_dkv", lambda: ops.flash_attention_bwd_dkv(
                 q, k, k, q.contiguous(), lse, lse, True))):
         try:

@@ -10,13 +10,12 @@ CUDA tensor launches the hand-written Hopper kernels or raises; only a
 tensor that lies on the CPU takes the plain PyTorch versions
 (``flash_attention_fwd_reference``, ``flash_attention_bwd_reference``).
 The kernels mask ragged edges themselves, so there is no routing by shape.
-In bf16 the forward and the dK/dV kernels run on the tensor cores (wgmma)
-and read their operands through TMA tensor maps, so their wrappers refuse
-(ValueError) an operand TMA cannot read: see ``tma_layout_error``; fp32
-and the dQ kernel keep FMA code that takes any strides with a contiguous
-head dim. Each kernel's wrapper (``flash_attention_fwd``,
-``flash_attention_bwd_dq``, ``flash_attention_bwd_dkv``) counts its
-launches in ``.launches``.
+In bf16 all three kernels run on the tensor cores (wgmma) and read their
+operands through TMA tensor maps, so their wrappers refuse (ValueError) an
+operand TMA cannot read: see ``tma_layout_error``; fp32 keeps FMA code
+that takes any strides with a contiguous head dim. Each kernel's wrapper
+(``flash_attention_fwd``, ``flash_attention_bwd_dq``,
+``flash_attention_bwd_dkv``) counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -321,12 +320,15 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
     tensors take ``flash_attention_bwd_dq_reference``; CUDA tensors launch
     ``csrc/flash_bwd_dq.cu`` on the current stream (and count the launch
     in ``flash_attention_bwd_dq.launches``) or raise. dO's head dim must be
-    contiguous."""
+    contiguous; in bf16, q, k, v and dO must meet ``tma_layout_error``'s
+    rule."""
     D = q.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
     if _bwd_devices(q, k, v, do, lse, delta) == "cpu":
         return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
                                                 causal, scale)
+    if q.dtype == torch.bfloat16:
+        _check_tma(q=q, k=k, v=v, do=do)
     B, Lq, H, _ = q.shape
     Lk, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)

@@ -1,9 +1,9 @@
-// Helpers of the FMA flash-attention kernels: the fp32 paths of
-// flash_fwd.cu and flash_bwd_dkv.cu and both paths of flash_bwd_dq.cu
-// (B2); the bf16 tensor-core kernels of the first two use flash_sm90.cuh
-// instead, and take only NEG_INF from here. fp32 conversion of the input
-// dtype, the padded fp32 tile loader and the row reductions over the 8
-// lanes that share a row of a 64x64 tile.
+// Helpers of the FMA flash-attention kernels, the fp32 paths of
+// flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu; their bf16
+// tensor-core kernels use flash_sm90.cuh instead, and take only NEG_INF
+// from here. fp32 conversion of the input dtype, the padded fp32 tile
+// loader and the row reductions over the 8 lanes that share a row of a
+// 64x64 tile.
 //
 // Every kernel keeps its tiles in shared memory as fp32 rows of D + 1
 // floats: threads read a column of consecutive rows, and the pad puts

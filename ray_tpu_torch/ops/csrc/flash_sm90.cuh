@@ -1,6 +1,6 @@
 // Hopper (sm_90a) primitives of the tensor-core flash kernels
-// (flash_fwd.cu and flash_bwd_dkv.cu, bf16 paths), in inline PTX:
-// mbarriers with phase parity, TMA tiled loads and stores
+// (flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu, bf16 paths), in
+// inline PTX: mbarriers with phase parity, TMA tiled loads and stores
 // (cp.async.bulk.tensor), the wgmma shared-memory descriptor for the
 // 128-byte swizzle, and wgmma.mma_async m64nNk16 bf16 -> fp32 with A from
 // shared memory or from registers. The host half encodes TMA tensor maps

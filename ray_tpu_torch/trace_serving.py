@@ -9,8 +9,8 @@ batch 8 and prompt 512 (the shape of chip_smoke.py's generator phase):
    steps (host clock around work that ends in a synchronise);
 2. times the engine's decode step with every slot occupied;
 3. traces one prefill and three decode steps with torch.profiler and
-   prints the device time by kernel and the device's busy share of the
-   traced wall time.
+   prints the device time by kernel (the largest, then the rest of the
+   port's own) and the device's busy share of the traced wall time.
 
 Needs a CUDA card. Prints the card's name and power limit first.
 ``trace_train.py`` does the same for a training step and shares the
@@ -59,8 +59,9 @@ FAMILIES = (("flash attention (ours)", ("flash_",)),
 
 
 def report(title, prof, wall_ms, top=12):
-    """Device time by kernel, by kernel family, and the device's busy
-    share of ``wall_ms``."""
+    """Device time by kernel (the ``top`` rows, then every other row of the
+    port's own kernels), by kernel family, and the device's busy share of
+    ``wall_ms``."""
     # kernels only: an operator's row repeats the time of its kernels, and
     # so does a user annotation on the device (Optimizer.step#AdamW.step)
     events = [e for e in prof.key_averages()
@@ -78,7 +79,10 @@ def report(title, prof, wall_ms, top=12):
     print("  by family: " + ", ".join(
         f"{f} {ms:.2f} ms ({100 * ms / busy_ms:.1f}%)"
         for f, ms in family_ms.items()))
-    for e in sorted(events, key=_device_us, reverse=True)[:top]:
+    rows = sorted(events, key=_device_us, reverse=True)
+    ours = FAMILIES[0][1]
+    for e in rows[:top] + [e for e in rows[top:]
+                           if any(k in e.key for k in ours)]:
         print(f"  {_device_us(e) / 1e3:9.3f} ms  {e.count:6d}x  "
               f"{e.key[:90]}")
 

@@ -9,8 +9,8 @@ adamw(3e-4), loss_chunk 256, batch 4 x 1024, one repeated batch):
 1. times steps after two warm-up steps (host clock around work that ends
    in a synchronise), with tokens/s and the peak memory allocated;
 2. traces one step with torch.profiler and prints the device time by
-   kernel and by kernel family and the device's busy share of the traced
-   wall time.
+   kernel (the largest, then the rest of the port's own) and by kernel
+   family and the device's busy share of the traced wall time.
 
 Needs a CUDA card. Prints the card's name and power limit first.
 """

@@ -114,10 +114,14 @@ def test_backward_kernels_match_plain_version_on_card(case):
             assert _rel_l2(g, w) < 1e-2, (name, _rel_l2(g, w))
 
 
-# the bf16 tensor-core tiling's edges (128-row q tiles in the forward,
-# 128-key blocks of 64-row q tiles in dK/dV): a length that is a multiple
-# of 64 but not of 128, one shorter than a tile, Lq != Lk across a 128-row
-# boundary both ways, causal and not, G in {1, 3, 4}, D in {64, 128}
+# the bf16 tensor-core tiling's edges (128-row q tiles of two 64-row
+# warpgroups in the forward and dQ, 128-key blocks of 64-row q tiles in
+# dK/dV): a length that is a multiple of 64 but not of 128 (L=192: under
+# the causal mask the 64-key tile after warpgroup 0's rows, and a
+# warpgroup wholly past Lq), one shorter than a tile (L=17: the second
+# warpgroup has no rows), Lq != Lk across a 128-row boundary both ways,
+# causal and not, G in {1, 3, 4}, D in {64, 128}, and a warpgroup with no
+# rows beside a key loop longer than the K/V ring
 EDGE_CASES = [
     dict(B=2, Lq=192, Lk=192, H=8, Hkv=2, D=128, causal=True),
     dict(B=2, Lq=17, Lk=17, H=6, Hkv=2, D=64, causal=True),
@@ -125,6 +129,9 @@ EDGE_CASES = [
     dict(B=1, Lq=129, Lk=257, H=4, Hkv=4, D=64, causal=False),
     dict(B=1, Lq=257, Lk=129, H=6, Hkv=2, D=128, causal=True),
     dict(B=1, Lq=257, Lk=129, H=4, Hkv=1, D=64, causal=False),
+    # dQ's second warpgroup has no rows (Lq=130) while its 16 K/V tiles
+    # wrap the 3-stage ring many times
+    dict(B=2, Lq=130, Lk=1024, H=24, Hkv=8, D=128, causal=False),
 ]
 
 
@@ -192,7 +199,7 @@ def test_fused_projection_views_on_card(D):
 @pytest.mark.cuda
 def test_stride_off_the_16_byte_rule_raises_on_card():
     """On the card: a bf16 view whose head stride is 260 bytes (not a
-    multiple of 16) raises ValueError in the forward and the dK/dV
+    multiple of 16) raises ValueError in the forward, the dQ and the dK/dV
     wrappers, and launches nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -200,14 +207,16 @@ def test_stride_off_the_16_byte_rule_raises_on_card():
                     dtype=torch.bfloat16)[..., :128]
     k = torch.zeros(2, 64, 2, 128, device="cuda", dtype=torch.bfloat16)
     lse = torch.zeros(2, 8, 64, device="cuda")
-    launches = (ops.flash_attention_fwd.launches,
-                ops.flash_attention_bwd_dkv.launches)
+    wrappers = (ops.flash_attention_fwd, ops.flash_attention_bwd_dq,
+                ops.flash_attention_bwd_dkv)
+    launches = [fn.launches for fn in wrappers]
     with pytest.raises(ValueError, match="multiple of 16"):
         ops.flash_attention_fwd(q, k, k, True)
     with pytest.raises(ValueError, match="multiple of 16"):
+        ops.flash_attention_bwd_dq(q, k, k, q.contiguous(), lse, lse, True)
+    with pytest.raises(ValueError, match="multiple of 16"):
         ops.flash_attention_bwd_dkv(q, k, k, q.contiguous(), lse, lse, True)
-    assert (ops.flash_attention_fwd.launches,
-            ops.flash_attention_bwd_dkv.launches) == launches
+    assert [fn.launches for fn in wrappers] == launches
 
 
 @pytest.mark.cuda
