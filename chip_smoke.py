@@ -34,20 +34,44 @@ Phases, each of which must pass (any failure exits non-zero):
    Every greedy token it emitted is then held against a one-shot forward
    of the same weights over the prompt and the tokens before it.
 5. Training at tpu-3b width and 4 layers (fp32 master weights, bf16
-   compute, batch 4 x 1024): one make_train_fns step through the kernels
-   and one through plain attention, from the same weights; the loss,
-   grad_norm and every parameter's gradient must agree.
+   compute, no activation recompute, batch 4 x 1024): one make_train_fns
+   step through the kernels and one through plain attention, from the same
+   weights; the loss, grad_norm and every parameter's gradient must agree.
 6. Training tpu-3b at full width and depth: make_train_fns with adamw(3e-4)
-   and loss_chunk 256, 5 steps of batch 4 x 1024 on one repeated batch.
-   Every step must launch each of the three kernels once per layer, and
-   the loss must fall. Step time, tokens/s and peak memory are printed.
-7. A JSON line of the kernels (with each one's TFLOP/s, its share of the
+   and loss_chunk 256, no activation recompute, 5 steps of batch 4 x 1024
+   on one repeated batch. Every step must launch each of the three kernels
+   once per layer, and the loss must fall. Step time, tokens/s and peak
+   memory are printed.
+7. The JAX bench's training recipe on tpu-3b at full width and depth: bf16
+   weights, adafactor(3e-4), remat "dots", loss_chunk 256, 5 steps of
+   batch 4 x 1024 on one repeated batch. First a 4-layer check of the same
+   recipe with remat "dots" against remat off: the loss and every gradient
+   must agree. Every step must launch the forward kernel twice per layer
+   (the forward and the backward's recompute) and the dQ and dK/dV kernels
+   once; the loss must fall. Step time, tokens/s, peak memory and an MFU
+   are printed.
+8. The engine's features on tpu-7b at full width and depth (8 slots of
+   1024 tokens, chunk 128, budget 256): (a) the prefix cache, with full
+   precision and int8 blocks: 4 shared 384-token prefixes, 4 requests each;
+   every request's greedy tokens must equal the same prompt's as a miss on
+   a fresh engine (and, in full precision, on an engine without the
+   cache); (b) the blocks exported and imported into a second engine give
+   the exporter's tokens; (c) speculative decoding, k=4, with a self-draft
+   and a random tpu-125m draft, in bf16 and again on the same weights in
+   fp32: in fp32 spec-on greedy streams must equal spec-off (a stream may
+   differ only at a near-tie of the spec-off logits, at most one of 8) and
+   the self-draft must accept at least 90% of its tokens; in bf16, where a
+   random model's logits tie often and the verify forward rounds otherwise
+   than a decode step, every spec-on token is held to a one-shot forward
+   as in phase 4, and the agreement with spec-off is printed.
+9. A JSON line of the kernels (with each one's TFLOP/s, its share of the
    bound and whether it runs on the tensor cores), the card line again,
    and last the result.
 
-The serving model is freed before the training phases. Launch counts are
-zeroed just before each main-path phase (3, 4, 6) and read just after it;
-launches made to compare or time a kernel (2, 5) do not count.
+The serving model is freed before the training phases and built again
+(from the same seed) for phase 8. Launch counts are zeroed just before each main-path
+phase (3, 4, 6, 7, 8) and read just after it; launches made to compare or
+time a kernel (2, 5, and 7's 4-layer check) do not count.
 """
 
 import dataclasses
@@ -107,6 +131,20 @@ TRAIN_GRAD_REL_L2 = 5e-2
 # first by this much, the margin the JAX package asserts for its own train
 # step (tests/test_model_parallel.py)
 LOSS_DROP = 0.1
+# phase 7's 4-layer check: remat "dots" recomputes what remat off kept, by
+# the same kernels and GEMMs on the same inputs, so the loss and every
+# gradient agree to this relative L2 error (bitwise equality is printed)
+RECIPE_REMAT_REL_L2 = 1e-3
+# phase 8 (c): the verify forward's GEMMs have k+1 times the rows of a
+# decode step's and may take another cuBLAS algorithm, moving a bf16 logit
+# in its last bit: a spec-on stream may leave the spec-off one only where
+# the spec-off logits' top two are within this share of the top logit, and
+# in at most SPEC_MAX_DIFFERING of the streams
+SPEC_NEAR_TIE = 1e-2
+SPEC_MAX_DIFFERING = 1
+# a self-draft proposes with the decode step's numbers: near-ties aside it
+# is always accepted
+SELF_DRAFT_MIN_ACCEPT = 0.9
 
 # every kernel's bf16 instantiation must run on the tensor cores, fed by TMA
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -114,7 +152,7 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # its library call
 TURN_ROUNDS = 5
 
-H100_BF16_FLOPS = 989e12   # dense tensor-core peak, H100 SXM data sheet
+H100_BF16_FLOPS = 989.4e12  # dense tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12    # fp32 outside the tensor cores
 H100_BYTES_S = 3.35e12     # HBM3
 
@@ -694,8 +732,14 @@ def run_engine(model, models, inference, ops, card, device="cuda",
           f"flash_fwd launches {launches} (chunked prefill and decode attend "
           f"through the cache) [{card}]", flush=True)
 
-    # every engine token against a one-shot forward over the prompt and
-    # the engine's earlier tokens: logits at position P-1+i predict token i
+    check_one_shot("engine", model, models, prompts, streams, device)
+    return launches
+
+
+def check_one_shot(what, model, models, prompts, streams, device):
+    """Every greedy engine token against a one-shot forward over the prompt
+    and the engine's earlier tokens (logits at position P-1+i predict token
+    i): it must be the argmax or within NEAR_TIE_GAP of it."""
     gaps, exact = [], 0
     with torch.inference_mode():
         for prompt, toks in zip(prompts, streams):
@@ -708,24 +752,27 @@ def run_engine(model, models, inference, ops, card, device="cuda",
             gap = logits.max(-1).values - logits.gather(
                 1, picked[:, None])[:, 0]
             if not torch.isfinite(logits).all():
-                fail("engine check: one-shot logits are not finite")
+                fail(f"{what} check: one-shot logits are not finite")
             gaps.append(gap.max().item())
             exact += int((logits.argmax(-1) == picked).sum())
-    print(f"engine tokens vs one-shot forward of the same weights: "
+    total = sum(len(t) for t in streams)
+    print(f"{what} tokens vs one-shot forward of the same weights: "
           f"{exact}/{total} are its argmax, largest gap below the argmax "
           f"{max(gaps):.3e} (tol {NEAR_TIE_GAP:g}), per request "
           f"{[round(g, 4) for g in gaps]}", flush=True)
     if max(gaps) > NEAR_TIE_GAP:
-        fail("engine tokens disagree with a one-shot forward")
-    return launches
+        fail(f"{what} tokens disagree with a one-shot forward")
 
 
-def train_fns(models, parallel, cfg, device, B, L, loss_chunk):
-    """A tpu-3b-shaped model on the meta device and its trainer: adamw(3e-4)
-    with optax's other defaults, fp32 master weights."""
+def train_fns(models, parallel, cfg, device, B, L, loss_chunk,
+              optimizer=None):
+    """A tpu-3b-shaped model on the meta device and its trainer: by default
+    adamw(3e-4) with optax's other defaults, fp32 master weights and no
+    activation recompute (phases 5 and 6, whose numbers PERF.md compares
+    across PRs); phase 7 passes its recipe's config and optimizer."""
     model = models.TransformerLM(cfg, device="meta")
     init_fn, step_fn = parallel.make_train_fns(
-        model, parallel.adamw(3e-4), batch_shape=(B, L + 1),
+        model, optimizer or parallel.adamw(3e-4), batch_shape=(B, L + 1),
         loss_chunk=loss_chunk, device=device)
     return model, init_fn, step_fn
 
@@ -734,7 +781,8 @@ def run_train_parity(models, parallel, ops, device="cuda", name="tpu-3b",
                      n_layers=4, B=4, L=1024, loss_chunk=256):
     """Phase 5: one training step through the kernels and one through
     plain attention, from the same seeded weights and batch."""
-    cfg = dataclasses.replace(models.MODEL_REGISTRY[name], n_layers=n_layers)
+    cfg = dataclasses.replace(models.MODEL_REGISTRY[name], n_layers=n_layers,
+                              remat=False)
     tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
                            generator=torch.Generator(device=device)
                            .manual_seed(2))
@@ -783,9 +831,10 @@ def run_train_parity(models, parallel, ops, device="cuda", name="tpu-3b",
 
 def run_train(models, parallel, ops, card, device="cuda", name="tpu-3b",
               n_layers=None, B=4, L=1024, steps=5, loss_chunk=256):
-    """Phase 6: train at full width and depth. Returns the kernel launch
-    counts of the run."""
-    cfg = models.MODEL_REGISTRY[name]
+    """Phase 6: train at full width and depth, fp32 master weights, AdamW,
+    no activation recompute. Returns the kernel launch counts of the
+    run."""
+    cfg = dataclasses.replace(models.MODEL_REGISTRY[name], remat=False)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model, init_fn, step_fn = train_fns(models, parallel, cfg, device, B, L,
@@ -837,6 +886,433 @@ def run_train(models, parallel, ops, card, device="cuda", name="tpu-3b",
     return counts
 
 
+def recipe_cfg(models, name, **kw):
+    """The JAX bench's headline training rung (bench.py, reports/
+    mfu_ablate.py): bf16 weights, remat "dots", flash attention."""
+    return dataclasses.replace(models.MODEL_REGISTRY[name],
+                               param_dtype=torch.bfloat16, remat=True,
+                               remat_policy="dots", **kw)
+
+
+def run_recipe_parity(models, parallel, device="cuda", name="tpu-3b",
+                      n_layers=4, B=4, L=1024, loss_chunk=256):
+    """Phase 7, first: one step of the recipe with remat "dots" and one with
+    remat off, from the same seeded weights and batch: the loss and every
+    gradient must agree."""
+    tokens = torch.randint(0, models.MODEL_REGISTRY[name].vocab_size,
+                           (B, L + 1), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(4))
+    runs = {}
+    for remat in (True, False):
+        cfg = recipe_cfg(models, name, n_layers=n_layers)
+        cfg = dataclasses.replace(cfg, remat=remat)
+        model, init_fn, step_fn = train_fns(
+            models, parallel, cfg, device, B, L, loss_chunk,
+            parallel.adafactor(3e-4))
+        state = init_fn(torch.Generator(device=device).manual_seed(0))
+        _, metrics = step_fn(state, tokens)
+        sync(device)
+        runs[remat] = (metrics["loss"], {n: p.grad.clone() for n, p in
+                                         model.named_parameters()})
+        del model, state, metrics
+    (loss, grads), (rloss, rgrads) = runs[True], runs[False]
+    rels = sorted(((rel_l2(grads[n], rgrads[n]), n) for n in grads),
+                  reverse=True)
+    loss_rel = rel_l2(loss, rloss)
+    bitwise = torch.equal(loss, rloss) and all(
+        torch.equal(grads[n], rgrads[n]) for n in grads)
+    print(f"recipe step, {name} width, {n_layers} layers, B={B} L={L}, bf16 "
+          f"weights, adafactor, remat dots vs off: loss {loss.item():.6f} vs "
+          f"{rloss.item():.6f} (rel {loss_rel:.3e}), gradient rel L2 over "
+          f"{len(rels)} parameters: max {rels[0][0]:.3e} ({rels[0][1]}) "
+          f"(tol {RECIPE_REMAT_REL_L2:g}); bitwise equal: {bitwise}",
+          flush=True)
+    if not torch.isfinite(loss) or max(loss_rel, rels[0][0]) \
+            > RECIPE_REMAT_REL_L2:
+        fail("the recipe step with remat dots disagrees with remat off")
+    del runs
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def step_model_flops(model, B, L):
+    """A training step's model FLOPs: 6 per parameter per token (the
+    embedding's lookup does no product) plus causal attention's two
+    products, 4*D per kept (query, key) pair forward and twice that
+    backward. Recompute is not counted."""
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters()) - model.embed.numel()
+    pairs = B * cfg.n_heads * L * (L + 1) / 2
+    return 6.0 * n * B * L + 3 * 4.0 * cfg.head_dim * pairs * cfg.n_layers
+
+
+def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
+               n_layers=None, B=4, L=1024, steps=5, loss_chunk=256,
+               lr=3e-4):
+    """Phase 7: the recipe at full width and depth. Returns the kernel
+    launch counts of the run. lr is the recipe's; Adafactor scales its
+    steps by the weights' RMS, so at a rehearsal's llama-debug size 3e-4
+    moves the loss by only ~0.02 in 5 steps, and the rehearsal passes
+    1e-2."""
+    cfg = recipe_cfg(models, name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model, init_fn, step_fn = train_fns(models, parallel, cfg, device, B, L,
+                                        loss_chunk, parallel.adafactor(lr))
+    t0 = time.perf_counter()
+    state = init_fn(torch.Generator(device=device).manual_seed(0))
+    sync(device)
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    print(f"recipe {name}: {models.count_params(model) / 1e9:.3f} B "
+          f"parameters in {dtypes}, adafactor({lr:g}), remat "
+          f"{cfg.remat_policy}, init {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(3))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    n = cfg.n_layers if device == "cuda" else 0
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    losses, times = [], []
+    zero_counts(ops)                               # main path: the recipe
+    for i in range(steps):
+        before = read_counts(ops)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        sync(device)
+        times.append(time.perf_counter() - t0)
+        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        losses.append(loss)
+        step_counts = {k: c - before[k] for k, c in read_counts(ops).items()}
+        print(f"recipe step {i + 1}: loss {loss:.6f}, grad_norm "
+              f"{gnorm:.6f}, {times[-1] * 1e3:.1f} ms "
+              f"({B * L / times[-1]:.1f} tokens/s), launches {step_counts}",
+              flush=True)
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            fail(f"recipe step {i + 1}: loss {loss}, grad_norm {gnorm}")
+        if step_counts != want:
+            fail(f"recipe step {i + 1} launched {step_counts}, want {want} "
+                 f"(the forward kernel twice per layer: forward and "
+                 f"recompute)")
+    counts = read_counts(ops)
+    steady = float(np.median(times[1:])) if steps > 1 else times[0]
+    flops = step_model_flops(model, B, L)
+    if device == "cuda":
+        peak = f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        mfu = f"{flops / steady / H100_BF16_FLOPS * 100:.1f}%"
+    else:
+        peak = mfu = "n/a (CPU)"
+    print(f"recipe {name}: {steps} steps of {B}x{L} tokens, step time "
+          f"{steady * 1e3:.1f} ms (median of steps 2-{steps}), "
+          f"{B * L / steady:.1f} tokens/s, peak memory allocated {peak}, "
+          f"model FLOPs {flops / 1e12:.2f} TFLOP per step, MFU {mfu} of "
+          f"{H100_BF16_FLOPS / 1e12:.1f} TFLOP/s (informational), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} [{card}]", flush=True)
+    if not losses[-1] < losses[0] - LOSS_DROP:
+        fail(f"the recipe's loss did not fall by {LOSS_DROP}: {losses}")
+    if state.step != steps:
+        fail(f"state.step is {state.step}, want {steps}")
+    del state, model
+    return counts
+
+
+def add_counts(total, ops):
+    for name, n in read_counts(ops).items():
+        total[name] = total.get(name, 0) + n
+
+
+def serve(eng, prompts, new, ops, counts, limit=2000):
+    """Drive an engine over prompts and return their handles. Each prompt
+    is submitted once the one before has its first token, so every prefill
+    runs alone, in chunks aligned at multiples of prefill_chunk (chunk
+    boundaries move a bf16 computation in its last bits, and a hit must
+    meet the same numbers as its miss). The engine's launches are added to
+    counts."""
+    steps = 0
+
+    def step():
+        nonlocal steps
+        eng.step()
+        steps += 1
+        if steps > limit:
+            fail("engine: requests did not finish")
+    zero_counts(ops)
+    handles = []
+    for p in prompts:
+        handles.append(eng.submit(p, max_new_tokens=new))
+        while handles[-1].first_token_t is None:
+            step()
+    while not all(h.finish_reason for h in handles):
+        step()
+    add_counts(counts, ops)
+    return handles
+
+
+def engine_cfg(inference, n_slots, max_len, chunk, budget, **kw):
+    return inference.EngineConfig(n_slots=n_slots, max_len=max_len,
+                                  prefill_chunk=chunk, prefill_budget=budget,
+                                  **kw)
+
+
+def release(device):
+    """Return what the engines just dropped to the card."""
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def run_prefix_cache(model, inference, ops, card, counts, device="cuda",
+                     n_slots=8, max_len=1024, chunk=128, budget=256,
+                     cache_slots=4, n_prefixes=4, prefix_len=384,
+                     per_prefix=4, suffix=(16, 96), new=32):
+    """Phase 8 (a) and (b), for full-precision and int8 blocks."""
+    vocab = model.cfg.vocab_size
+    rng = np.random.RandomState(5)
+    heads = [rng.randint(0, vocab, prefix_len) for _ in range(n_prefixes)]
+    prompts = [[np.concatenate([h, rng.randint(0, vocab, rng.randint(
+        suffix[0], suffix[1] + 1))]) for _ in range(per_prefix)]
+        for h in heads]
+    flat = [p for group in prompts for p in group]
+    mcfg = model.cfg
+    for mode in ("none", "int8"):
+        cfg = engine_cfg(inference, n_slots, max_len, chunk, budget,
+                         prefix_cache_slots=cache_slots, kv_quant=mode)
+        eng = inference.InferenceEngine(model, cfg, device=device, seed=0)
+        t0 = time.perf_counter()
+        # one prefix at a time: its first request misses, the rest hit
+        handles = [h for group in prompts
+                   for h in serve(eng, group, new, ops, counts)]
+        sync(device)
+        wall = time.perf_counter() - t0
+        got = [h.tokens() for h in handles]
+        matched = [h.prefix_matched for h in handles]
+        st = eng.stats()
+        # the same prompts as misses on fresh engines: one engine per
+        # request index, whose prompts have distinct prefixes
+        want = [None] * len(flat)
+        for j in range(per_prefix):
+            ref = inference.InferenceEngine(model, cfg, device=device,
+                                            seed=0)
+            hs = serve(ref, [g[j] for g in prompts], new, ops, counts)
+            for g, h in enumerate(hs):
+                if h.prefix_matched:
+                    fail("a reference prompt hit the cache")
+                want[g * per_prefix + j] = h.tokens()
+            del ref
+            release(device)
+        hit = [i for i, m in enumerate(matched) if m]
+        miss = [i for i, m in enumerate(matched) if not m]
+        ttft = {k: float(np.median([handles[i].ttft_s for i in idx])) * 1e3
+                for k, idx in (("hit", hit), ("miss", miss))}
+        per_token = kvq_bytes(mcfg, mode)
+        equal = sum(g == w for g, w in zip(got, want))
+        print(f"prefix cache kv_quant={mode}: {len(flat)} requests "
+              f"({n_prefixes} prefixes of {prefix_len} tokens, suffixes "
+              f"{suffix[0]}-{suffix[1]}, {new} greedy tokens) in "
+              f"{wall:.3f} s; {len(hit)} hits, matched tokens "
+              f"{sum(matched)}; TTFT median hit {ttft['hit']:.1f} ms, miss "
+              f"{ttft['miss']:.1f} ms; blocks used "
+              f"{st['prefix_blocks_cached']} of "
+              f"{st['prefix_blocks_cached'] + st['prefix_blocks_free']}, "
+              f"{per_token} bytes per cached token; tokens equal to a miss "
+              f"on a fresh engine: {equal}/{len(flat)} [{card}]", flush=True)
+        if not hit or sum(matched) <= 0 or equal != len(flat):
+            fail(f"prefix cache kv_quant={mode}: a hit's tokens differ "
+                 f"from its miss's, or nothing hit")
+        if mode == "none":
+            off = inference.InferenceEngine(
+                model, engine_cfg(inference, n_slots, max_len, chunk,
+                                  budget), device=device, seed=0)
+            plain = [h.tokens() for group in prompts
+                     for h in serve(off, group, new, ops, counts)]
+            del off
+            release(device)
+            same = sum(g == w for g, w in zip(got, plain))
+            print(f"prefix cache kv_quant=none vs an engine without the "
+                  f"cache: {same}/{len(flat)} streams equal", flush=True)
+            if same != len(flat):
+                fail("the prefix cache changed the tokens of full-precision "
+                     "blocks")
+        run_kv_handoff(model, inference, ops, eng, cfg, prompts, got,
+                       counts, device, per_prefix, new)
+        del eng
+        release(device)
+
+
+def kvq_bytes(mcfg, mode):
+    """Bytes one cached token costs in the block pool (K and V)."""
+    from ray_tpu_torch.inference import kv_quant
+    if mode == "int8":
+        return kv_quant.int8_block_bytes_per_token(mcfg.n_kv_heads,
+                                                   mcfg.head_dim)
+    itemsize = torch.empty((), dtype=mcfg.dtype).element_size()
+    return kv_quant.fp_block_bytes_per_token(mcfg.n_kv_heads, mcfg.head_dim,
+                                             itemsize)
+
+
+def run_kv_handoff(model, inference, ops, exporter, cfg, prompts, got,
+                   counts, device, per_prefix, new):
+    """Phase 8 (b): each prefix's blocks exported from the engine of (a)
+    and imported into a fresh engine over the same weights, which must
+    serve the prompt from them with the exporter's greedy tokens."""
+    importer = inference.InferenceEngine(model, cfg, device=device, seed=0)
+    chosen = [g[1] for g in prompts]
+    n_bytes, covered = 0, 0
+    t0 = time.perf_counter()
+    for p in chosen:
+        c, spans = exporter.export_kv_blocks(p)
+        n_bytes += sum(a.nbytes for span in spans for a in span)
+        covered += importer.import_kv_blocks(p, spans)
+    hand_s = time.perf_counter() - t0
+    hs = serve(importer, chosen, new, ops, counts)
+    tokens = [h.tokens() for h in hs]
+    want = [got[g * per_prefix + 1] for g in range(len(prompts))]
+    matched = [h.prefix_matched for h in hs]
+    print(f"kv hand-off kv_quant={cfg.kv_quant}: {len(chosen)} prompts, "
+          f"{covered} tokens imported in {n_bytes / 2**20:.1f} MiB of host "
+          f"spans ({hand_s * 1e3:.1f} ms export + import), matched "
+          f"{matched}, importer tokens equal to the exporter's: "
+          f"{sum(t == w for t, w in zip(tokens, want))}/{len(chosen)}",
+          flush=True)
+    if tokens != want or not all(matched):
+        fail(f"kv hand-off kv_quant={cfg.kv_quant}: the importer's tokens "
+             f"differ from the exporter's")
+    del importer
+    release(device)
+
+
+def first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def run_spec(model, models, inference, ops, card, counts, device="cuda",
+             n_slots=8, max_len=1024, chunk=128, budget=256, k=4,
+             lens=(64, 100, 150, 200, 260, 320, 380, 448), new=32,
+             draft_name="tpu-125m"):
+    """Phase 8 (c): speculative decoding with a self-draft and a random
+    draft, against the engine without it, in the model's dtype. In fp32
+    the spec-on streams must equal spec-off (near-tie rule) and the
+    self-draft must accept at least SELF_DRAFT_MIN_ACCEPT. In bf16 a
+    verify forward and a decode step differ in their last bits, and a
+    random model's bf16 logits tie often (its top two are often one bf16
+    step apart), so there every spec-on token is held to a one-shot forward
+    as phase 4 holds the engine's, and the agreement with spec-off and the
+    accept rates are printed."""
+    exact = model.cfg.dtype == torch.float32
+    dtype = str(model.cfg.dtype).replace("torch.", "")
+    vocab = model.cfg.vocab_size
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, vocab, n) for n in lens]
+    cfg = engine_cfg(inference, n_slots, max_len, chunk, budget)
+    draft_cfg = dataclasses.replace(models.MODEL_REGISTRY[draft_name],
+                                    dtype=model.cfg.dtype)
+    drafts = {
+        "self-draft": {"draft_model": model.cfg, "k": k,
+                       "draft_params_fn": model.state_dict},
+        f"random {draft_name} draft": {"draft_model": draft_cfg, "k": k,
+                                       "draft_seed": 7},
+    }
+    runs, rates = {}, {}
+    for label, spec in [("spec off", None)] + list(drafts.items()):
+        eng = inference.InferenceEngine(model, cfg, device=device, seed=0,
+                                        spec=spec)
+        times, decode_steps = [], 0
+        zero_counts(ops)
+        handles = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        while not all(h.finish_reason for h in handles):
+            prefilled = all(h.first_token_t is not None for h in handles)
+            before = eng.tokens_generated
+            t0 = time.perf_counter()
+            eng.step()
+            sync(device)
+            if eng.tokens_generated > before:
+                decode_steps += 1
+                if prefilled:
+                    times.append(time.perf_counter() - t0)
+            if eng.steps > 2000:
+                fail(f"spec {label}: requests did not finish")
+        add_counts(counts, ops)
+        runs[label] = [h.tokens() for h in handles]
+        rates[label] = eng.stats().get("spec_accept_rate", "n/a")
+        print(f"spec decode {dtype}, {label} (k={k}): "
+              f"{eng.tokens_generated} decoded tokens in {decode_steps} "
+              f"decode steps ({eng.tokens_generated / decode_steps:.2f} "
+              f"tokens per step over {n_slots} slots), decode step "
+              f"{np.median(times) * 1e3:.1f} ms (median of {len(times)}), "
+              f"accept rate {rates[label]} [{card}]", flush=True)
+        del eng
+        release(device)
+    off = runs["spec off"]
+    for label in drafts:
+        diffs = []
+        for prompt, a, b in zip(prompts, off, runs[label]):
+            i = first_diff(a, b)
+            if i is None and len(a) == len(b):
+                continue
+            i = min(len(a), len(b)) if i is None else i
+            diffs.append((i, near_tie(model, models, prompt, a, i, device)))
+        print(f"spec decode {dtype}, {label}: {len(prompts) - len(diffs)}/"
+              f"{len(prompts)} streams equal spec off; at the first "
+              f"difference of the others (position, spec-off top-2 logit "
+              f"gap / top logit): {[(i, round(d, 5)) for i, d in diffs]} "
+              f"(near-tie below {SPEC_NEAR_TIE:g})", flush=True)
+        if not exact:
+            check_one_shot(f"spec decode {dtype}, {label},", model, models,
+                           prompts, runs[label], device)
+            continue
+        if len(diffs) > SPEC_MAX_DIFFERING or any(
+                d >= SPEC_NEAR_TIE for _, d in diffs):
+            fail(f"spec decode {dtype}, {label}: streams differ from spec "
+                 f"off beyond a near-tie")
+    if exact and rates["self-draft"] < SELF_DRAFT_MIN_ACCEPT:
+        fail(f"the self-draft accepted {rates['self-draft']} of its "
+             f"tokens, want at least {SELF_DRAFT_MIN_ACCEPT}")
+
+
+def near_tie(model, models, prompt, tokens, i, device):
+    """The spec-off stream's logits at its token i (a one-shot forward of
+    the prompt and tokens[:i]): the gap between the top two over the top
+    logit's size."""
+    seq = torch.tensor(np.concatenate([prompt, tokens[:i]]),
+                       dtype=torch.long, device=device)[None]
+    with torch.inference_mode():
+        logits = model(seq, cache=models.init_cache(
+            model.cfg, 1, seq.shape[1], device=device))[0][0, -1].float()
+    top = torch.topk(logits, 2).values
+    return ((top[0] - top[1]) / top[0].abs()).item()
+
+
+def run_engine_features(models, inference, ops, card, device="cuda",
+                        name="tpu-7b", **kw):
+    """Phase 8 on a fresh seeded model of `name` (bf16, as served), then
+    (c) again on its weights in fp32. Returns the kernels' launches in its
+    engines' runs."""
+    cfg = models.MODEL_REGISTRY[name]
+    model = models.TransformerLM(cfg, device="meta")
+    model.load_state_dict(models.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device),
+        assign=True)
+    counts = {}
+    run_prefix_cache(model, inference, ops, card, counts, device=device,
+                     **kw.get("prefix", {}))
+    run_spec(model, models, inference, ops, card, counts, device=device,
+             **kw.get("spec", {}))
+    wide = models.TransformerLM(
+        dataclasses.replace(cfg, dtype=torch.float32), device="meta")
+    wide.load_state_dict({n: t.float() for n, t in
+                          model.state_dict().items()}, assign=True)
+    del model
+    release(device)
+    run_spec(wide, models, inference, ops, card, counts, device=device,
+             **kw.get("spec", {}))
+    del wide
+    release(device)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
@@ -873,8 +1349,16 @@ def main():
     torch.cuda.empty_cache()
     run_train_parity(models, parallel, ops)
     train_counts = run_train(models, parallel, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_recipe_parity(models, parallel)
+    recipe_counts = run_recipe(models, parallel, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    feature_counts = run_engine_features(models, inference, ops, card)
     for name in KERNELS:
-        records[name]["launches"] = train_counts[name]
+        records[name]["launches"] = (train_counts[name] + recipe_counts[name]
+                                     + feature_counts.get(name, 0))
     records["flash_fwd"]["launches"] += gen_launches + eng_launches
     for name in KERNELS:
         if records[name]["launches"] == 0:

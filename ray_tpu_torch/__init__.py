@@ -7,14 +7,17 @@ kernel written by hand for Hopper under ``ops/csrc``, built at first use.
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
-from ray_tpu_torch.inference import EngineConfig, InferenceEngine
+from ray_tpu_torch.inference import (EngineConfig, InferenceEngine,
+                                     SpecDecodeConfig)
 from ray_tpu_torch.models import (MODEL_REGISTRY, TransformerConfig,
                                   TransformerLM, init_cache, init_params,
                                   make_generate_fn, params_from_jax)
 from ray_tpu_torch.ops import flash_attention
-from ray_tpu_torch.parallel import TrainState, adamw, make_train_fns
+from ray_tpu_torch.parallel import (TrainState, adafactor, adamw,
+                                    make_train_fns)
 
 __all__ = ["EngineConfig", "InferenceEngine", "MODEL_REGISTRY",
-           "TrainState", "TransformerConfig", "TransformerLM", "adamw",
-           "flash_attention", "init_cache", "init_params",
-           "make_generate_fn", "make_train_fns", "params_from_jax"]
+           "SpecDecodeConfig", "TrainState", "TransformerConfig",
+           "TransformerLM", "adafactor", "adamw", "flash_attention",
+           "init_cache", "init_params", "make_generate_fn", "make_train_fns",
+           "params_from_jax"]

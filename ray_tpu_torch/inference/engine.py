@@ -1,7 +1,7 @@
 """Continuous-batching inference engine: a fixed-shape KV slot pool and a
 persistent decode loop.
 
-Counterpart of ``ray_tpu/inference/engine.py`` (the core, on one device):
+Counterpart of ``ray_tpu/inference/engine.py``, on one device:
 
 - The engine owns ``n_slots`` KV-cache slots, allocated once as
   ``[n_layers, n_slots, max_len, Hkv, D]`` tensors and updated IN PLACE by
@@ -12,13 +12,21 @@ Counterpart of ``ray_tpu/inference/engine.py`` (the core, on one device):
   into a per-request scratch cache, which is copied into its slot when the
   prompt completes; and (b) advances every occupied slot one token in one
   batched decode step (per-slot ``idx`` tensor: each row attends and
-  writes at its own length).
+  writes at its own length), or by 1..k+1 tokens with speculative
+  decoding (``spec_decode.py``).
 - Tokens stream out per request through ``RequestHandle`` queues; slots
   are freed on EOS, max-tokens, slot capacity, cancellation or deadline.
+- With ``prefix_cache_slots > 0`` a radix trie (``prefix_cache.py``) over
+  completed prefills addresses a block pool of ``prefix_cache_slots`` more
+  rows of the slot shape, carved into ``prefill_chunk`` blocks: an
+  admission that matches copies the blocks into its scratch instead of
+  running prefill over them. ``kv_quant="int8"`` stores the block pool as
+  int8 values + fp32 scale rows (``kv_quant.py``); the decode slot pool
+  stays full precision. ``export_kv_blocks``/``import_kv_blocks`` move
+  cached blocks between engines as host spans.
 
-Sampling is shared with ``make_generate_fn`` (models/sampling.py).
-Speculative decoding, the prefix cache, int8 KV, the export/import span
-programs, a device mesh and step profiling are not ported yet.
+Sampling is shared with ``make_generate_fn`` (models/sampling.py). A
+device mesh, step profiling and flight-recorder events are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,12 +34,15 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.inference import kv_quant as kvq
+from ray_tpu_torch.inference import spec_decode as spec_lib
+from ray_tpu_torch.inference.prefix_cache import RadixPrefixCache
 from ray_tpu_torch.inference.scheduler import (FINISH_LENGTH, PrefillChunk,
                                                Request, RequestHandle,
                                                Scheduler)
@@ -53,8 +64,17 @@ class EngineConfig:
     eos_id: default EOS (<0 disables); per-request override on Request.
     temperature/top_k/top_p: default sampling (temperature has a
         per-request override).
-    kv_quant, prefix_cache_slots: only their off values are ported.
-    The KV cache is kept in the model's dtype.
+    cache_dtype: the KV slot pool's dtype (default: the model's).
+    kv_quant: "int8" stores the prefix BLOCK pool as int8 values + fp32
+        per-(position, head) scale rows (about itemsize*D/(D+4) more
+        cached chunks per byte; the hand-off spans shrink alike). The
+        decode slot pool stays full precision. The miss path publishes
+        each completed chunk and reloads its dequantized values, so greedy
+        output is bit-identical between a prefix-cache hit and the miss
+        that populated it.
+    prefix_cache_slots: extra cache-only rows of the slot shape, carved
+        into prefill_chunk-aligned blocks that hold completed prefill
+        spans (0 disables the prefix cache).
     """
     n_slots: int = 4
     max_len: int = 512
@@ -64,6 +84,7 @@ class EngineConfig:
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 1.0
+    cache_dtype: Any = None
     kv_quant: str = "none"
     prefix_cache_slots: int = 0
 
@@ -74,82 +95,140 @@ class InferenceEngine:
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
                  device="cuda", seed: int = 0, mesh=None, spec=None):
-        if spec is not None:
-            raise NotImplementedError(
-                "speculative decoding " + _NOT_PORTED.format("A2"))
         if mesh is not None:
             raise NotImplementedError(
                 "a sharded engine (mesh) " + _NOT_PORTED.format("A3"))
         cfg = self.config = config or EngineConfig()
-        if cfg.prefix_cache_slots > 0:
-            raise NotImplementedError(
-                "the prefix cache " + _NOT_PORTED.format("A2"))
-        if cfg.kv_quant != "none":
-            raise NotImplementedError(
-                f"kv_quant={cfg.kv_quant!r} " + _NOT_PORTED.format("A2"))
         self.device = resolve_device(device)
         self.model = model
         mcfg = model.cfg
-        if cfg.max_len > mcfg.max_seq_len:
-            raise ValueError(f"max_len={cfg.max_len} exceeds the model's "
-                             f"max_seq_len={mcfg.max_seq_len}")
+        self._kv_quant = kvq.check_mode(cfg.kv_quant) == "int8"
+        # speculative decoding: both slot pools grow by k positions so the
+        # fixed [len, len+k+1) verify write window never clamps back onto
+        # live entries
+        self._spec = spec_lib.resolve_spec(spec)
+        self._spec_k = self._spec.k if self._spec is not None else 0
+        self._pool_len = cfg.max_len + self._spec_k
+        if self._pool_len > mcfg.max_seq_len:
+            raise ValueError(
+                f"max_len={cfg.max_len} (+ spec k={self._spec_k}) exceeds "
+                f"the model's max_seq_len={mcfg.max_seq_len}")
         param = next(model.parameters())
         if param.device.type != self.device.type:
             raise ValueError(f"model weights are on {param.device}, the "
                              f"engine on {self.device}")
+        self._draft_model = None
+        if self._spec is not None:
+            self._draft_model = spec_lib.resolve_draft(self._spec, mcfg,
+                                                       self.device)
+            if self._pool_len > self._draft_model.cfg.max_seq_len:
+                raise ValueError(
+                    f"draft max_seq_len={self._draft_model.cfg.max_seq_len}"
+                    f" < max_len + k = {self._pool_len}")
+        self.prefix_cache = None
+        if cfg.prefix_cache_slots > 0:
+            self._blocks_per_slot = cfg.max_len // cfg.prefill_chunk
+            self.prefix_cache = RadixPrefixCache(
+                cfg.prefill_chunk,
+                cfg.prefix_cache_slots * self._blocks_per_slot)
         self.sched = Scheduler(cfg.n_slots, cfg.prefill_budget,
                                default_temperature=cfg.temperature,
                                eos_id=cfg.eos_id,
-                               chunk_size=cfg.prefill_chunk)
+                               chunk_size=cfg.prefill_chunk,
+                               prefix_cache=self.prefix_cache)
         self._lock = threading.RLock()
         self._work = threading.Condition(self._lock)
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        self._cache_dtype = mcfg.dtype
-        pool_shape = (mcfg.n_layers, cfg.n_slots, cfg.max_len,
-                      mcfg.n_kv_heads, mcfg.head_dim)
-        # the pool is allocated once and written in place by every step
-        self._pool_k = torch.zeros(pool_shape, dtype=self._cache_dtype,
-                                   device=self.device)
+        dtype = self._cache_dtype = cfg.cache_dtype or mcfg.dtype
+        # the pools are allocated once and written in place by every step
+        self._pool_k = self._zeros((mcfg.n_layers, cfg.n_slots,
+                                    self._pool_len, mcfg.n_kv_heads,
+                                    mcfg.head_dim), dtype)
         self._pool_v = torch.zeros_like(self._pool_k)
         # scratch is prefill_chunk longer than a slot so a padded final
         # chunk never clamps its write window back onto real entries
-        self._scratch_shape = (mcfg.n_layers, 1,
-                               cfg.max_len + cfg.prefill_chunk,
+        self._scratch_len = cfg.max_len + cfg.prefill_chunk
+        self._scratch_shape = (mcfg.n_layers, 1, self._scratch_len,
                                mcfg.n_kv_heads, mcfg.head_dim)
+        self._dpool_k = self._dpool_v = None
+        if self._spec is not None:
+            dcfg = self._draft_model.cfg
+            self._dpool_k = self._zeros((dcfg.n_layers, cfg.n_slots,
+                                         self._pool_len, dcfg.n_kv_heads,
+                                         dcfg.head_dim), dtype)
+            self._dpool_v = torch.zeros_like(self._dpool_k)
+            self._draft_scratch_shape = (dcfg.n_layers, 1, self._scratch_len,
+                                         dcfg.n_kv_heads, dcfg.head_dim)
+            self._spec_step = spec_lib.build_spec_step(
+                model, self._draft_model, self._spec.k, cfg.top_k,
+                cfg.top_p)
+        self._blocks_k = self._blocks_v = None
+        self._blocks_ks = self._blocks_vs = None
+        if self.prefix_cache is not None:
+            # block storage: prefix_cache_slots more rows of the per-slot
+            # shape; int8 stores values + fp32 per-(position, head) scales
+            block_shape = (mcfg.n_layers, cfg.prefix_cache_slots,
+                           cfg.max_len, mcfg.n_kv_heads, mcfg.head_dim)
+            bdtype = torch.int8 if self._kv_quant else dtype
+            self._blocks_k = self._zeros(block_shape, bdtype)
+            self._blocks_v = self._zeros(block_shape, bdtype)
+            if self._kv_quant:
+                self._blocks_ks = self._zeros(block_shape[:-1],
+                                              torch.float32)
+                self._blocks_vs = self._zeros(block_shape[:-1],
+                                              torch.float32)
 
         # host-side slot state (fixed width, mirrors the device tensors)
         self._lengths = np.zeros((cfg.n_slots,), np.int64)
         self._last_tok = np.zeros((cfg.n_slots,), np.int64)
         self._temps = np.zeros((cfg.n_slots,), np.float32)
-        self._scratch: Dict[int, tuple] = {}    # rid -> (sk, sv)
+        self._scratch: Dict[int, tuple] = {}          # rid -> (sk, sv)
+        self._draft_scratch: Dict[int, tuple] = {}    # rid -> (dk, dv)
 
+        # spec decode accounting (greedy rows only: sampled rows always
+        # force accept = 0 and would just dilute the rate)
+        self.spec_tokens_proposed = 0
+        self.spec_tokens_accepted = 0
         self.steps = 0
         self.tokens_generated = 0
+        # hand-off accounting
+        self.kv_exports = 0
+        self.kv_imports = 0
+        self.remote_prefix_tokens = 0
+
+    def _zeros(self, shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------ device fns
     @torch.inference_mode()
-    def _prefill(self, sk, sv, tokens, pos0: int, n_real: int,
-                 temp: float) -> int:
+    def _prefill(self, model, sk, sv, tokens, pos0: int):
         """One budgeted chunk of prompt through the cached path (writes sk,
-        sv in place); samples the would-be next token, which is used only
-        after the last chunk, where it is the first generated token."""
-        cfg = self.config
+        sv in place). Returns the chunk's logits."""
         cache = {"k": sk, "v": sv, "idx": pos0}
-        logits, _ = self.model(tokens, cache=cache, chunked_prefill=True)
+        logits, _ = model(tokens, cache=cache, chunked_prefill=True)
+        return logits
+
+    @torch.inference_mode()
+    def _sample_first(self, logits, n_real: int, temp: float) -> int:
+        """The would-be next token after a chunk; used only after the last
+        chunk, where it is the first generated token."""
+        cfg = self.config
         tok = sample_logits_dynamic(logits[:, n_real - 1], self._gen,
                                     torch.tensor([temp]), cfg.top_k,
                                     cfg.top_p)
         return int(tok[0])
 
     @torch.inference_mode()
-    def _insert(self, sk, sv, slot: int):
+    def _insert(self, pool_k, pool_v, sk, sv, slot: int):
         # scratch carries prefill_chunk of padding tail; the slot takes the
-        # first max_len entries
-        self._pool_k[:, slot] = sk[:, 0, :self.config.max_len]
-        self._pool_v[:, slot] = sv[:, 0, :self.config.max_len]
+        # first max_len entries (a spec pool's k extra positions are
+        # written by the verify window before they are read)
+        n = self.config.max_len
+        pool_k[:, slot, :n] = sk[:, 0, :n]
+        pool_v[:, slot, :n] = sv[:, 0, :n]
 
     @torch.inference_mode()
     def _decode(self) -> np.ndarray:
@@ -167,14 +246,29 @@ class InferenceEngine:
                                     cfg.top_k, cfg.top_p)
         return tok.cpu().numpy()
 
+    def _spec_decode(self):
+        """The fused draft+verify step; (out [S, k+1], accept [S]) brought
+        to the host before anything branches on them."""
+        dev = self.device
+        out, acc = self._spec_step(
+            self._pool_k, self._pool_v, self._dpool_k, self._dpool_v,
+            torch.from_numpy(self._lengths).to(dev),
+            torch.from_numpy(self._last_tok).to(dev), self._gen,
+            torch.from_numpy(self._temps).to(dev))
+        return out.cpu().numpy(), acc.cpu().numpy()
+
     # -------------------------------------------------------------- intake
     def submit(self, tokens, max_new_tokens: int = 64,
                temperature: Optional[float] = None,
                eos_id: Optional[int] = None,
-               deadline_s: Optional[float] = None) -> RequestHandle:
+               deadline_s: Optional[float] = None,
+               hold: bool = False) -> RequestHandle:
         """Queue one prompt; returns a streaming RequestHandle.
         deadline_s is relative (seconds from now): a request still queued
-        past it fails with finish_reason='deadline'."""
+        past it fails with finish_reason='deadline'. hold=True parks the
+        request in the queue (FIFO position kept) until release_hold(),
+        the window in which its prefix's KV arrives from another engine
+        (``import_kv_blocks``)."""
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         if len(tokens) == 0:
             raise ValueError("empty prompt")
@@ -189,17 +283,26 @@ class InferenceEngine:
         with self._work:
             if self._stop:
                 raise RuntimeError("engine is stopped")
-            h = self.sched.submit(req)
+            h = self.sched.submit(req, hold=hold)
             self._work.notify_all()
         return h
 
-    def export_kv_blocks(self, tokens, max_chunks: Optional[int] = None):
-        raise NotImplementedError(
-            "the KV export span program " + _NOT_PORTED.format("A2"))
+    def release_hold(self, handle: RequestHandle):
+        """End a hold-submitted request's hand-off window: it becomes
+        admissible on the next step (its imported prefix, if the hand-off
+        landed, now matches via the radix trie like a locally cached
+        one). Safe to call on any failure path."""
+        with self._work:
+            self.sched.release_hold(handle.rid)
+            self._work.notify_all()
 
-    def import_kv_blocks(self, tokens, spans) -> int:
-        raise NotImplementedError(
-            "the KV import span program " + _NOT_PORTED.format("A2"))
+    def begin_drain(self):
+        """Preemption drain: refuse new submissions (submit raises), finish
+        everything in flight. The loop keeps stepping until the last slot
+        evicts."""
+        with self._work:
+            self.sched.begin_drain()
+            self._work.notify_all()
 
     # --------------------------------------------------------------- loop
     def start(self) -> "InferenceEngine":
@@ -240,12 +343,13 @@ class InferenceEngine:
     # --------------------------------------------------------------- step
     def step(self) -> bool:
         """One engine iteration: reap cancels/deadlines, run budgeted
-        prefill chunks (admission), advance every occupied slot one token.
-        Returns True if any device work ran."""
+        prefill chunks (admission), advance every occupied slot. Returns
+        True if any device work ran."""
         with self._lock:
             now = time.monotonic()
             for st in self.sched.reap(now):
                 self._scratch.pop(st.rid, None)
+                self._draft_scratch.pop(st.rid, None)
             did = False
             for ch in self.sched.plan_prefill():
                 self._run_prefill_chunk(ch)
@@ -258,47 +362,268 @@ class InferenceEngine:
                     self.sched.evict(st, FINISH_LENGTH)
             active = self.sched.active_states()
             if active:
-                toks = self._decode()
-                now = time.monotonic()
-                for st in active:
-                    slot = st.slot
-                    self._lengths[slot] += 1
-                    self._last_tok[slot] = toks[slot]
-                    self.tokens_generated += 1
-                    self.sched.decode_emit(st, int(toks[slot]), now)
+                if self._spec is not None:
+                    self._emit_spec(active)
+                else:
+                    toks = self._decode()
+                    now = time.monotonic()
+                    for st in active:
+                        slot = st.slot
+                        self._lengths[slot] += 1
+                        self._last_tok[slot] = toks[slot]
+                        self.tokens_generated += 1
+                        self.sched.decode_emit(st, int(toks[slot]), now)
                 did = True
             self.steps += 1
             return did
+
+    def _emit_spec(self, active):
+        """Accepted prefix + one bonus token per slot, branching on the
+        accept counts as host values."""
+        out, acc = self._spec_decode()
+        now = time.monotonic()
+        for st in active:
+            slot = st.slot
+            accepted = int(acc[slot])
+            if self._temps[slot] <= 0.0:
+                self.spec_tokens_proposed += self._spec_k
+                self.spec_tokens_accepted += accepted
+            for j in range(accepted + 1):
+                self._lengths[slot] += 1
+                tok = int(out[slot, j])
+                self._last_tok[slot] = tok
+                self.tokens_generated += 1
+                self.sched.decode_emit(st, tok, now)
+                if st.slot is None:
+                    break    # finished (EOS / max tokens)
 
     def _run_prefill_chunk(self, ch: PrefillChunk):
         cfg = self.config
         st = ch.state
         sk_sv = self._scratch.get(st.rid)
         if sk_sv is None:
-            sk_sv = tuple(torch.zeros(self._scratch_shape,
-                                      dtype=self._cache_dtype,
-                                      device=self.device) for _ in range(2))
+            sk_sv = (self._zeros(self._scratch_shape, self._cache_dtype),
+                     self._zeros(self._scratch_shape, self._cache_dtype))
+            if st.prefix_nodes:
+                # radix hit: the matched span's KV comes out of the block
+                # pool as copies; no forward runs over [0, prefix_matched)
+                self._restore_prefix(st, *sk_sv)
         sk, sv = sk_sv
+        dk_dv = None
+        if self._spec is not None:
+            dk_dv = self._draft_scratch.get(st.rid)
+            if dk_dv is None:
+                dk_dv = tuple(self._zeros(self._draft_scratch_shape,
+                                          self._cache_dtype)
+                              for _ in range(2))
+                if st.prefix_matched:
+                    # the block pool holds TARGET KV only; the (cheap)
+                    # draft re-prefills the matched range so its cache
+                    # stays aligned with the target's
+                    self._draft_replay(st, *dk_dv)
         prompt = st.request.tokens
         chunk = np.zeros((1, cfg.prefill_chunk), np.int64)
         chunk[0, :ch.length] = prompt[ch.start:ch.start + ch.length]
-        tok = self._prefill(sk, sv, torch.from_numpy(chunk).to(self.device),
-                            ch.start, ch.length, st.temperature)
+        chunk = torch.from_numpy(chunk).to(self.device)
+        logits = self._prefill(self.model, sk, sv, chunk, ch.start)
+        tok = self._sample_first(logits, ch.length, st.temperature)
+        if self._spec is not None:
+            self._prefill(self._draft_model, *dk_dv, chunk, ch.start)
         if ch.is_last:
             slot = st.slot
-            self._insert(sk, sv, slot)
+            if self.prefix_cache is not None:
+                self._populate_prefix(st, sk, sv)
+            self._insert(self._pool_k, self._pool_v, sk, sv, slot)
+            if self._spec is not None:
+                self._insert(self._dpool_k, self._dpool_v, *dk_dv, slot)
             self._scratch.pop(st.rid, None)
+            self._draft_scratch.pop(st.rid, None)
             self._lengths[slot] = len(prompt)
             self._last_tok[slot] = tok
             self._temps[slot] = st.temperature
             self.sched.prefill_done(st, tok, time.monotonic())
         else:
+            if self._kv_quant and self.prefix_cache is not None:
+                self._publish_chunk_quant(st, sk, sv, ch)
             self._scratch[st.rid] = (sk, sv)
+            if self._spec is not None:
+                self._draft_scratch[st.rid] = dk_dv
             self.sched.advance_prefill(st, ch.length)
+
+    # ------------------------------------------------------- prefix cache
+    def _block_at(self, block: int):
+        """(block-pool row, token offset) of a trie block id."""
+        bslot, boff = divmod(block, self._blocks_per_slot)
+        return bslot, boff * self.config.prefill_chunk
+
+    @torch.inference_mode()
+    def _load_span(self, sk, sv, bslot: int, src: int, dst: int):
+        """Cached block -> scratch[dst:dst+C] (dequantized under int8): the
+        suffix prefill then attends over it as if the chunk had just been
+        computed."""
+        C = self.config.prefill_chunk
+        for scratch, blocks, scales in ((sk, self._blocks_k, self._blocks_ks),
+                                        (sv, self._blocks_v, self._blocks_vs)):
+            span = blocks[:, bslot, src:src + C]
+            if scales is not None:
+                span = kvq.dequantize_kv(span, scales[:, bslot, src:src + C],
+                                         self._cache_dtype)
+            scratch[:, 0, dst:dst + C] = span
+
+    @torch.inference_mode()
+    def _save_block(self, sk, sv, bslot: int, dst: int, src: int):
+        """One chunk scratch[src:src+C] -> block pool (row bslot, offset
+        dst), quantizing when int8 is on."""
+        C = self.config.prefill_chunk
+        for scratch, blocks, scales in ((sk, self._blocks_k, self._blocks_ks),
+                                        (sv, self._blocks_v, self._blocks_vs)):
+            span = scratch[:, 0, src:src + C]
+            if scales is not None:
+                span, scale = kvq.quantize_kv(span)
+                scales[:, bslot, dst:dst + C] = scale
+            blocks[:, bslot, dst:dst + C] = span
+
+    def _restore_prefix(self, st, sk, sv):
+        """Copy the matched trie blocks into this request's scratch cache
+        ([0, prefix_matched) chunk by chunk), then unpin them. Runs once,
+        on the request's first prefill chunk, under the engine lock:
+        eviction cannot race the copies."""
+        C = self.config.prefill_chunk
+        for i, node in enumerate(st.prefix_nodes):
+            bslot, boff = self._block_at(node.block)
+            self._load_span(sk, sv, bslot, boff, i * C)
+        self.sched.unpin_prefix(st)
+
+    def _populate_prefix(self, st, sk, sv):
+        """Miss path, at prefill completion: extend the trie over every full
+        chunk of the prompt and fill the newly allocated blocks from scratch
+        (already-present chunks are skipped: their KV is identical by
+        construction)."""
+        for off, block in self.prefix_cache.insert(st.request.tokens):
+            bslot, boff = self._block_at(block)
+            self._save_block(sk, sv, bslot, boff, off)
+
+    def _publish_chunk_quant(self, st, sk, sv, ch):
+        """int8 miss path, non-final chunks: publish each COMPLETED full
+        chunk into the quantized block pool as it finishes, then reload the
+        dequantized values into this request's OWN scratch, so the miss
+        attends exactly the numbers a later hit will restore (greedy output
+        bit-identical hit vs miss). The final chunk is save-only in
+        _populate_prefix: the admission match is capped one token short of
+        the prompt, so no hit ever restores it and both paths attend it
+        raw."""
+        end = ch.start + ch.length
+        for off, block in self.prefix_cache.insert(st.request.tokens[:end]):
+            bslot, boff = self._block_at(block)
+            self._save_block(sk, sv, bslot, boff, off)
+            self._load_span(sk, sv, bslot, boff, off)
+
+    def _draft_replay(self, st, dk, dv):
+        """Prefix-hit draft warmup: re-prefill the matched range through the
+        draft model (prefix_matched is a multiple of prefill_chunk)."""
+        C = self.config.prefill_chunk
+        prompt = st.request.tokens
+        for off in range(0, st.prefix_matched, C):
+            chunk = torch.from_numpy(
+                prompt[off:off + C].astype(np.int64)[None]).to(self.device)
+            self._prefill(self._draft_model, dk, dv, chunk, off)
+
+    # ------------------------------------------------------ KV hand-off
+    def export_kv_blocks(self, tokens, max_chunks: Optional[int] = None):
+        """Sender half of the prefill/decode hand-off: copy the cached KV
+        blocks covering ``tokens``' chunk-aligned prefix out of the block
+        pool as host arrays. Returns ``(covered_tokens, spans)`` where
+        ``spans`` is ``[(k, v), ...]`` of span shape ``[n_layers, 1,
+        prefill_chunk, Hkv, D]`` (numpy in the pool's dtype, or fp32 for a
+        bf16 pool, which numpy lacks: exact), or under int8 ``[(qk, qv, ks,
+        vs), ...]`` (int8 values, fp32 scales without the D axis). Defaults
+        to the admission cap (one token short of the prompt) so the
+        importing engine's match covers exactly what its scheduler would
+        use. Blocks stay pinned for the duration of the copy."""
+        if self.prefix_cache is None:
+            return 0, []
+        C = self.config.prefill_chunk
+        cap = (max(0, len(tokens) - 1) // C if max_chunks is None
+               else max(0, int(max_chunks)))
+
+        def host(x):
+            x = x[:, None].cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        with self._lock:
+            nodes = self.prefix_cache.walk(tokens, cap)
+            spans = []
+            try:
+                for node in nodes:
+                    bslot, boff = self._block_at(node.block)
+                    arrays = (self._blocks_k, self._blocks_v)
+                    if self._kv_quant:
+                        arrays += (self._blocks_ks, self._blocks_vs)
+                    spans.append(tuple(host(a[:, bslot, boff:boff + C])
+                                       for a in arrays))
+            finally:
+                self.prefix_cache.release(nodes)
+            if spans:
+                self.kv_exports += 1
+        return len(spans) * C, spans
+
+    @torch.inference_mode()
+    def import_kv_blocks(self, tokens, spans) -> int:
+        """Receiver half: land remotely prefilled spans in this engine's
+        block pool and extend the trie over them, so the NEXT admission of
+        ``tokens`` (or any prompt sharing the prefix) hits through the
+        ordinary restore path: no forward runs over the imported range,
+        and greedy output equals a local prefill's (the blocks are the
+        same computation, done elsewhere). A span in the other format than
+        the pool's is quantized or dequantized on the host with the same
+        fp32 math. Chunks already cached locally are skipped; returns the
+        number of prompt tokens newly covered."""
+        if self.prefix_cache is None or not spans:
+            return 0
+        C = self.config.prefill_chunk
+        n = min(len(spans), len(tokens) // C)
+        if n <= 0:
+            return 0
+
+        def dev(x, dtype):
+            if x.dtype.kind == "V" or str(x.dtype) == "bfloat16":
+                x = np.asarray(x, np.float32)
+            return torch.from_numpy(np.array(x)).to(
+                self.device).to(dtype)[:, 0]
+        with self._lock:
+            created = self.prefix_cache.insert(
+                [int(t) for t in tokens[:n * C]])
+            for off, block in created:
+                span = spans[off // C]
+                bslot, boff = self._block_at(block)
+                if self._kv_quant:
+                    if len(span) == 4:
+                        qk, qv, ks, vs = span
+                    else:
+                        qk, ks = kvq.quantize_kv_np(span[0])
+                        qv, vs = kvq.quantize_kv_np(span[1])
+                    pairs = ((self._blocks_k, qk, torch.int8),
+                             (self._blocks_v, qv, torch.int8),
+                             (self._blocks_ks, ks, torch.float32),
+                             (self._blocks_vs, vs, torch.float32))
+                else:
+                    if len(span) == 4:
+                        ck = kvq.dequantize_kv_np(span[0], span[2])
+                        cv = kvq.dequantize_kv_np(span[1], span[3])
+                    else:
+                        ck, cv = span
+                    pairs = ((self._blocks_k, ck, self._cache_dtype),
+                             (self._blocks_v, cv, self._cache_dtype))
+                for blocks, x, dtype in pairs:
+                    blocks[:, bslot, boff:boff + C] = dev(x, dtype)
+            imported = len(created) * C
+            if imported:
+                self.kv_imports += 1
+                self.remote_prefix_tokens += imported
+        return imported
 
     # -------------------------------------------------------------- stats
     def stats(self) -> Dict:
-        return {
+        out = {
             "n_slots": self.config.n_slots,
             "slots_occupied": self.sched.occupancy(),
             "slots_free": self.config.n_slots - self.sched.occupancy(),
@@ -306,4 +631,26 @@ class InferenceEngine:
             "active": len(self.sched.active_slots()),
             "steps": self.steps,
             "tokens_generated": self.tokens_generated,
+            "draining": self.sched.draining,
         }
+        if self.prefix_cache is not None:
+            out.update(self.prefix_cache.stats())
+            out["kv_exports"] = self.kv_exports
+            out["kv_imports"] = self.kv_imports
+            out["remote_prefix_tokens"] = self.remote_prefix_tokens
+        if self._spec is not None:
+            prop = self.spec_tokens_proposed
+            out["spec_k"] = self._spec_k
+            out["spec_tokens_proposed"] = prop
+            out["spec_tokens_accepted"] = self.spec_tokens_accepted
+            out["spec_accept_rate"] = (
+                round(self.spec_tokens_accepted / prop, 4) if prop else 0.0)
+        if self._kv_quant:
+            mcfg = self.model.cfg
+            itemsize = torch.empty((), dtype=self._cache_dtype).element_size()
+            out["kv_quant"] = "int8"
+            out["kv_quant_slot_gain"] = round(
+                kvq.slot_gain(mcfg.head_dim, itemsize), 3)
+            out["kv_quant_slot_gain_vs_fp16"] = round(
+                kvq.slot_gain(mcfg.head_dim, 2), 3)
+        return out

@@ -1,9 +1,7 @@
 """Request scheduling for the continuous-batching engine.
 
 The port's own copy of ``ray_tpu/inference/scheduler.py`` (host-only),
-without the flight-recorder spans and trace context, and without what the
-port has no user of yet: the prefix-cache admission, held (remotely
-prefilled) requests and drain mode.
+without the flight-recorder spans and trace context.
 
 The scheduler owns everything about a request EXCEPT the tensors: the
 FIFO admission queue, the per-step prefill-token budget (prefill must
@@ -66,6 +64,9 @@ class RequestHandle:
         self._q: "queue.Queue" = queue.Queue()
         self._drained = False
         self._end_seen = False     # sentinel met inside next_many()
+        # prompt tokens whose prefill the radix cache skipped (set at
+        # admission; 0 = miss or cache disabled)
+        self.prefix_matched = 0
 
     # ------------------------------------------------------ engine side
     def _emit(self, token: int, now: float):
@@ -161,6 +162,16 @@ class RequestState:
     prefill_pos: int = 0          # prompt tokens already prefilled
     generated: int = 0
     last_token: int = 0
+    # radix-cache admission state: matched prefix length (its prefill is
+    # skipped: the engine copies the blocks instead) and the pinned trie
+    # nodes backing it (released once the copy lands in scratch)
+    prefix_matched: int = 0
+    prefix_nodes: Optional[List[Any]] = None
+    # remote-prefill admission state: a held request keeps its FIFO queue
+    # position but is skipped by plan_prefill until release_hold, the
+    # window in which its KV blocks are in flight from another engine.
+    # Cancellation/deadline reaping still applies.
+    hold: bool = False
 
 
 @dataclasses.dataclass
@@ -184,12 +195,15 @@ class Scheduler:
 
     def __init__(self, n_slots: int, prefill_budget: int,
                  default_temperature: float = 0.0, eos_id: int = -1,
-                 chunk_size: Optional[int] = None):
+                 chunk_size: Optional[int] = None, prefix_cache=None):
         self.n_slots = n_slots
         self.prefill_budget = max(1, int(prefill_budget))
         # static shape of one prefill call; a planned chunk never
         # exceeds it (the engine pads shorter chunks up to it)
         self.chunk_size = int(chunk_size or self.prefill_budget)
+        # optional RadixPrefixCache (prefix_cache.py): consulted once per
+        # request at admission; matched spans skip prefill entirely
+        self.prefix_cache = prefix_cache
         self.default_temperature = default_temperature
         self.default_eos = eos_id
         self._rid = itertools.count()
@@ -197,9 +211,33 @@ class Scheduler:
         self._prefilling: List[RequestState] = []  # slot held, prompt wip
         self._active: Dict[int, RequestState] = {}  # slot -> state
         self._free_slots = list(range(n_slots))
+        # drain mode (preemption notice): new submissions are refused
+        # while everything already queued/prefilling/active runs to
+        # completion
+        self.draining = False
+
+    # ----------------------------------------------------------- draining
+    def begin_drain(self):
+        """Flip admission off ahead of a preemption kill. Idempotent;
+        there is no un-drain: a drained engine is on its way out."""
+        self.draining = True
+
+    def drained(self) -> bool:
+        """True once every in-flight request has finished. Held requests
+        still count as pending: their hand-off will release them."""
+        return self.draining and not (self._queue or self._prefilling
+                                      or self._active)
 
     # ------------------------------------------------------------ intake
-    def submit(self, request: Request) -> RequestHandle:
+    def submit(self, request: Request, hold: bool = False) -> RequestHandle:
+        """hold=True enqueues WITHOUT making the request admissible: it
+        keeps its FIFO position while a KV hand-off is in flight and
+        becomes plannable on release_hold() (a hold that is never released
+        is only reaped by cancel/deadline)."""
+        if self.draining:
+            raise RuntimeError(
+                "scheduler is draining (preemption notice): new "
+                "requests must be routed to another replica")
         rid = next(self._rid)
         handle = RequestHandle(rid)
         temp = (request.temperature
@@ -208,9 +246,20 @@ class Scheduler:
         eos = (request.eos_id if request.eos_id is not None
                else self.default_eos)
         st = RequestState(rid=rid, request=request, handle=handle,
-                          temperature=float(temp), eos_id=int(eos))
+                          temperature=float(temp), eos_id=int(eos),
+                          hold=bool(hold))
         self._queue.append(st)
         return handle
+
+    def release_hold(self, rid: int) -> bool:
+        """Make a held request admissible (its hand-off landed, or failed,
+        in which case admission falls back to local prefill). Idempotent;
+        False when the request already left the queue."""
+        for st in self._queue:
+            if st.rid == rid:
+                st.hold = False
+                return True
+        return False
 
     # -------------------------------------------------------- accounting
     def queue_depth(self) -> int:
@@ -267,6 +316,7 @@ class Scheduler:
     def _release(self, st: RequestState, reason: str, now: float,
                  error: Optional[BaseException] = None):
         st.status = "FINISHED"
+        self.unpin_prefix(st)
         if st.slot is not None:
             self._active.pop(st.slot, None)
             self._free_slots.append(st.slot)
@@ -288,13 +338,39 @@ class Scheduler:
             if budget <= 0:
                 break
             budget -= self._plan_one(st, budget, chunks)
-        while budget > 0 and self._queue and self._free_slots:
-            st = self._queue.pop(0)
+        qi = 0
+        while budget > 0 and qi < len(self._queue) and self._free_slots:
+            if self._queue[qi].hold:
+                # remote-prefill hand-off in flight: the request keeps its
+                # FIFO position but later arrivals may admit past it
+                qi += 1
+                continue
+            st = self._queue.pop(qi)
             st.slot = self._free_slots.pop(0)
             st.status = "PREFILLING"
+            if self.prefix_cache is not None:
+                matched, nodes = self.prefix_cache.match(st.request.tokens)
+                if matched:
+                    # the matched span's prefill is SKIPPED: the engine
+                    # copies the pinned blocks into scratch before the
+                    # first planned chunk runs; planning starts at the
+                    # first uncached token
+                    st.prefill_pos = matched
+                    st.prefix_matched = matched
+                    st.prefix_nodes = nodes
+                    st.handle.prefix_matched = matched
             self._prefilling.append(st)
             budget -= self._plan_one(st, budget, chunks)
         return chunks
+
+    def unpin_prefix(self, st: RequestState):
+        """Matched blocks have been copied into the request's scratch: the
+        trie nodes may be evicted again. Idempotent; also called on
+        release so a cancelled mid-admission request never wedges a
+        pin."""
+        if st.prefix_nodes and self.prefix_cache is not None:
+            self.prefix_cache.release(st.prefix_nodes)
+        st.prefix_nodes = None
 
     def _plan_one(self, st: RequestState, budget: int,
                   chunks: List[PrefillChunk]) -> int:
@@ -366,4 +442,8 @@ class Scheduler:
         self._prefilling.clear()
 
     def has_work(self) -> bool:
-        return bool(self._queue or self._prefilling or self._active)
+        """Actionable work only: a queue holding nothing but held requests
+        doesn't spin the engine loop (release_hold notifies the loop's
+        condition when a hand-off lands)."""
+        return bool(self._prefilling or self._active
+                    or any(not st.hold for st in self._queue))

@@ -45,11 +45,12 @@ MODEL_REGISTRY = {
 }
 
 from ray_tpu_torch.models.convert import (init_params,  # noqa: E402
-                                          params_from_jax)
+                                          jax_leaf_groups, params_from_jax)
 from ray_tpu_torch.models.generate import make_generate_fn  # noqa: E402
 from ray_tpu_torch.models.sampling import (sample_logits,  # noqa: E402
                                            sample_logits_dynamic)
 
 __all__ = ["TransformerConfig", "TransformerLM", "MODEL_REGISTRY",
-           "count_params", "init_cache", "init_params", "make_generate_fn",
+           "count_params", "init_cache", "init_params", "jax_leaf_groups",
+           "make_generate_fn",
            "params_from_jax", "sample_logits", "sample_logits_dynamic"]

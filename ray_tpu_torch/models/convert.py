@@ -1,6 +1,9 @@
 """Weights for ``TransformerLM``: from a flax tree, or made from a seed.
 
-``params_from_jax`` maps the JAX model's param tree (unboxed, leaves as
+``jax_leaf_groups`` groups the parameters by the JAX leaf they form (the
+layers' tensors stacked on a leading axis, each in its JAX shape), the
+unit that optax's per-leaf rules (Adafactor's factoring and block RMS)
+work on. ``params_from_jax`` maps the JAX model's param tree (unboxed, leaves as
 numpy arrays; the layers stacked on a leading axis under ``layers/block``)
 to this package's ``state_dict``; a gradient tree of the same structure
 maps the same way, onto the parameters' names. ``init_params`` makes
@@ -11,7 +14,7 @@ random weights with the JAX model's initialisers, from a
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -49,6 +52,47 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
             sd[f"layers.{i}.{norm}.scale"] = torch.from_numpy(
                 np.array(blk[norm]["scale"][i]))
     return sd
+
+
+def _linear_shape(cfg: TransformerConfig, name: str):
+    """A linear's JAX kernel shape in one layer (the port stores it 2-D)."""
+    E, F, H, Hkv, D = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    return {"q": (E, H, D), "k": (E, Hkv, D), "v": (E, Hkv, D),
+            "o": (H, D, E), "gate": (E, F), "up": (E, F),
+            "down": (F, E)}[name]
+
+
+def jax_leaf_groups(model) -> List[dict]:
+    """The model's parameters as one ``torch.optim`` param group per leaf of
+    the JAX param tree: ``{"params": [tensors], "name": the leaf's path,
+    "shape": its JAX shape}``. A leaf under ``layers/block`` stacks the
+    n_layers tensors of one name on a leading axis, each tensor viewed in
+    its per-layer JAX shape (``shape[1:]``); any other leaf holds one
+    tensor of ``shape``."""
+    cfg = model.cfg
+    n = cfg.n_layers
+    groups = [{"params": [model.embed], "name": "embed",
+               "shape": tuple(model.embed.shape), "stacked": False}]
+    for mod, name in _LINEARS:
+        groups.append({
+            "params": [getattr(getattr(blk, mod), name)
+                       for blk in model.layers],
+            "name": f"layers/block/{mod}/{name}/kernel",
+            "shape": (n,) + _linear_shape(cfg, name), "stacked": True})
+    for norm in ("attn_norm", "mlp_norm"):
+        groups.append({
+            "params": [getattr(blk, norm).scale for blk in model.layers],
+            "name": f"layers/block/{norm}/scale",
+            "shape": (n, cfg.d_model), "stacked": True})
+    groups.append({"params": [model.final_norm.scale],
+                   "name": "final_norm/scale", "shape": (cfg.d_model,),
+                   "stacked": False})
+    if model.unembed is not None:
+        groups.append({"params": [model.unembed], "name": "unembed",
+                       "shape": tuple(model.unembed.shape),
+                       "stacked": False})
+    return groups
 
 
 def _lecun_normal(shape, fan_in, generator, device, dtype):

@@ -14,6 +14,15 @@ the JAX layout flattened to 2-D ([in, out], e.g. q is [d_model, H * D]),
 so ``models/convert.py`` maps a flax tree one to one. The forward without
 a cache carries autograd end to end: it writes nothing in place.
 
+Activation recompute follows the JAX model's ``remat``/``remat_policy``:
+each block of a training forward runs under
+``torch.utils.checkpoint.checkpoint``, and the policy names which
+operations' outputs are kept for the backward (JAX's checkpoint policies
+keep dot outputs; ``REMAT_SAVED_OPS`` maps them to aten's matrix
+products). The flash autograd Function is not a product, so the backward's
+recompute runs the forward kernel again, as JAX's grad re-runs its
+``pallas_call``. A forward without grad (serving) is not checkpointed.
+
 The KV cache is a dict {"k", "v": [n_layers, B, M, Hkv, D], "idx"}; a
 forward with a cache writes its keys and values INTO those tensors in
 place (the JAX model returns new arrays) and returns a new dict with the
@@ -23,11 +32,15 @@ advanced ``idx``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.dispatch import attention as attention_dispatch
@@ -48,6 +61,12 @@ class TransformerConfig:
     # the trainer's master weights (make_train_fns' init_fn stores them so)
     param_dtype: torch.dtype = torch.float32
     tie_embeddings: bool = False
+    # activation recompute of each block in a training forward, with the
+    # JAX model's defaults: "dots" keeps the matrix products' outputs and
+    # recomputes the rest, "dots_no_batch" keeps only products without
+    # batch dims, "nothing" recomputes everything
+    remat: bool = True
+    remat_policy: str = "dots"
     # keep logits in the activation dtype unless asked for fp32
     logits_fp32: bool = False
     # "auto"/"flash": the flash kernel; "reference": plain attention
@@ -59,6 +78,34 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+
+# JAX policy -> the aten products whose outputs it keeps: checkpoint_dots
+# keeps every dot_general, checkpoint_dots_with_no_batch_dims only those
+# without batch dims (a bmm, such as the plain attention's einsums, is
+# recomputed); nothing_saveable keeps nothing
+REMAT_SAVED_OPS = {
+    "nothing": (),
+    "dots": ("mm", "addmm", "bmm", "baddbmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def remat_context_fn(policy: str):
+    """``checkpoint``'s context_fn for a JAX remat policy ("nothing" is
+    plain checkpointing, which keeps no intermediate)."""
+    if policy not in REMAT_SAVED_OPS:
+        raise ValueError(f"remat_policy={policy!r}; expected one of "
+                         f"{sorted(REMAT_SAVED_OPS)}")
+    names = REMAT_SAVED_OPS[policy]
+    if not names:
+        return noop_context_fn
+    saved = {getattr(torch.ops.aten, n).default for n in names}
+
+    def policy_fn(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy_fn)
 
 
 class RMSNorm(nn.Module):
@@ -271,8 +318,15 @@ class TransformerLM(nn.Module):
         if cache is not None:
             return self._decode(x, positions, cache, return_hidden,
                                 chunked_prefill)
+        cfg = self.cfg
+        context_fn = remat_context_fn(cfg.remat_policy) if cfg.remat \
+            else None
         for block in self.layers:
-            x = block(x, positions)
+            if context_fn is not None and torch.is_grad_enabled():
+                x = checkpoint(block, x, positions, use_reentrant=False,
+                               context_fn=context_fn)
+            else:
+                x = block(x, positions)
         x = self.final_norm(x)
         return x if return_hidden else self._logits(x)
 

@@ -5,12 +5,18 @@ Counterpart of ``ray_tpu/parallel/train_step.py`` (``make_train_fns``,
 runs the model's forward under autograd (attention through the flash
 kernels' ``torch.autograd.Function``: the forward kernel, then the dQ and
 dK/dV kernels in the backward), the loss, ``backward``, the global norm of
-the gradients and the optimizer's update. Parameters are fp32 master
-weights (``cfg.param_dtype``) cast to ``cfg.dtype`` at each use, so their
-gradients arrive in fp32, as JAX's AD returns them.
+the gradients and the optimizer's update. Parameters are stored in
+``cfg.param_dtype`` and cast to ``cfg.dtype`` at each use, so their
+gradients arrive in the parameters' dtype, as JAX's AD returns them: fp32
+master weights by default, or bf16 weights and gradients with
+``param_dtype=torch.bfloat16`` (the JAX bench's recipe); RMSNorm scales
+stay fp32 in both. Each block runs under activation recompute as
+``cfg.remat``/``cfg.remat_policy`` say. The optimizer is built over one
+param group per JAX leaf (``models.jax_leaf_groups``), which optax's
+per-leaf rules (``parallel.optim.adafactor``) need.
 
 The device mesh and its sharding rules (ROADMAP.md, Queue A item A3) and
-the step profiler (item A7) are not ported: ``make_train_fns`` takes
+the step profiler (item A3b) are not ported: ``make_train_fns`` takes
 neither, and returns no sharding tree.
 """
 
@@ -24,7 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
-from ray_tpu_torch.models.convert import init_params
+from ray_tpu_torch.models.convert import init_params, jax_leaf_groups
 from ray_tpu_torch.models.transformer import TransformerLM
 
 
@@ -104,11 +110,12 @@ def make_train_fns(model: TransformerLM,
     """Returns (init_fn(generator) -> TrainState, step_fn(state, tokens,
     mask=None) -> (state, metrics)).
 
-    ``optimizer`` is a factory over parameters (``parallel.optim.adamw``).
-    ``init_fn`` fills the model with seeded random weights in
-    ``cfg.param_dtype`` (``convert.init_params``) on ``device`` and builds
-    the optimizer over them; a model loaded another way can be loaded after
-    it (``load_state_dict`` copies into the same parameters).
+    ``optimizer`` is a factory over param groups (``parallel.optim.adamw``,
+    ``parallel.optim.adafactor``). ``init_fn`` fills the model with seeded
+    random weights in ``cfg.param_dtype`` (``convert.init_params``; norm
+    scales in fp32) on ``device`` and builds the optimizer over its JAX-leaf
+    param groups; a model loaded another way can be loaded after it
+    (``load_state_dict`` copies into the same parameters).
     ``step_fn`` takes tokens of ``batch_shape`` [B, L+1]: inputs are
     ``tokens[:, :-1]``, targets ``tokens[:, 1:]``, the loss mask
     ``mask[:, 1:]``. It updates the model and optimizer in place, advances
@@ -128,7 +135,7 @@ def make_train_fns(model: TransformerLM,
                                           dtype=cfg.param_dtype),
                               assign=True)
         return TrainState(step=0, model=model,
-                          optimizer=optimizer(model.parameters()))
+                          optimizer=optimizer(jax_leaf_groups(model)))
 
     def loss_fn(tokens, mask):
         inputs, targets = tokens[:, :-1], tokens[:, 1:]

@@ -2,7 +2,8 @@
 
 The tiny config of tests/test_inference_engine.py, fp32, the same weights
 on both sides: greedy token streams must be equal token for token through
-chunked prefill, mid-decode admission and slot reuse."""
+chunked prefill, mid-decode admission and slot reuse; held requests and
+drain behave alike."""
 
 import jax
 import jax.numpy as jnp
@@ -91,14 +92,29 @@ def test_threaded_loop_streams_and_stops(tiny):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(spec=object()), "speculative"),
     (dict(mesh=object()), "mesh"),
-    (dict(config=EngineConfig(prefix_cache_slots=1)), "prefix cache"),
-    (dict(config=EngineConfig(kv_quant="int8")), "kv_quant"),
 ])
 def test_features_not_ported_raise(tiny, kw, match):
     with pytest.raises(NotImplementedError, match=match):
         InferenceEngine(tiny[2], device="cpu", **kw)
+
+
+def test_engine_features_are_checked_as_jax(tiny):
+    """Speculative decoding, the prefix cache and int8 blocks are ported
+    (tests/test_torch_prefix_cache.py, tests/test_torch_spec_decode.py);
+    their configuration is checked as the JAX engine checks it."""
+    with pytest.raises(TypeError, match="SpecDecodeConfig or dict"):
+        InferenceEngine(tiny[2], device="cpu", spec=object())
+    with pytest.raises(ValueError, match="requires a draft_model"):
+        InferenceEngine(tiny[2], device="cpu", spec={"k": 2})
+    with pytest.raises(ValueError, match="kv_quant='fp8'"):
+        InferenceEngine(tiny[2], EngineConfig(kv_quant="fp8"), device="cpu")
+    eng = InferenceEngine(tiny[2], EngineConfig(
+        **ENGINE, prefix_cache_slots=1, kv_quant="int8"), device="cpu")
+    st = eng.stats()
+    assert st["kv_quant"] == "int8"
+    assert st["prefix_blocks_free"] == ENGINE["max_len"] // \
+        ENGINE["prefill_chunk"]
 
 
 def test_engine_default_device_is_the_card(tiny):
@@ -106,3 +122,37 @@ def test_engine_default_device_is_the_card(tiny):
         pytest.skip("this machine has a card: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(tiny[2])
+
+
+def _hold_drain(eng):
+    """A held request keeps its place while a later one admits past it;
+    release admits it; a drain refuses new work, finishes what is in
+    flight and reports drained. Returns what was observed."""
+    rng = np.random.RandomState(8)
+    a = eng.submit(rng.randint(0, 128, 6), max_new_tokens=5, hold=True)
+    b = eng.submit(rng.randint(0, 128, 5), max_new_tokens=5)
+    for _ in range(3):
+        eng.step()
+    seen = [a.first_token_t is None, b.first_token_t is not None,
+            eng.sched.has_work()]
+    eng.release_hold(a)
+    eng.begin_drain()
+    with pytest.raises(RuntimeError, match="draining"):
+        eng.submit([1, 2, 3])
+    seen.append(eng.sched.drained())
+    for _ in range(50):
+        eng.step()
+    seen += [eng.sched.drained(), eng.stats()["draining"]]
+    return seen, a.tokens(), b.tokens()
+
+
+def test_hold_release_and_drain_match_jax(tiny):
+    """``submit(hold=)``/``release_hold`` and ``begin_drain`` behave as the
+    JAX engine's on the same schedule."""
+    jmodel, params, tmodel = tiny
+    want = _hold_drain(JaxEngine(jmodel, params, JaxEngineConfig(
+        **ENGINE, step_profile=False)))
+    got = _hold_drain(InferenceEngine(tmodel, EngineConfig(**ENGINE),
+                                      device="cpu"))
+    assert got == want
+    assert got[0] == [True, True, True, False, True, True]
