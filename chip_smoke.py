@@ -64,17 +64,47 @@ Phases, each of which must pass (any failure exits non-zero):
    random model's logits tie often and the verify forward rounds otherwise
    than a decode step, every spec-on token is held to a one-shot forward
    as in phase 4, and the agreement with spec-off is printed.
-9. A JSON line of the kernels (with each one's TFLOP/s, its share of the
-   bound and whether it runs on the tensor cores), the card line again,
-   and last the result.
+9. MoE serving: mixtral-8x7b at full width (d_model 4096, d_ff 14336,
+   32/8 heads, 8 experts, top-2) cut to 16 of its 32 layers, bf16, seeded
+   random weights. The generator at batch 8, prompt 512, 32 greedy tokens
+   must launch the flash kernel once per layer in its prefill; then the
+   prefill's and a decode step's time, the peak memory, the share of
+   routing picks dropped at capacity_factor 1.25, and (informational) the
+   share of routing decisions that equal those of plain attention and the
+   largest logit difference at positions routed alike in every layer.
+   The engine runs phase 4's request mix (8 slots of 1024, chunk 128,
+   budget 256). At 1.25 a chunk of 128 tokens (C = 40), a decode step
+   (C = 1) and a one-shot forward route differently, so its tokens are
+   held in phase 11.
+10. MoE training: the JAX bench's recipe (bf16 weights, adafactor(3e-4),
+    remat "dots", loss_chunk 256) on mixtral-8x7b at full width and 4
+    layers: first phase 7's check of remat "dots" against remat off (the
+    routing is recomputed, the expert products kept), then 5 steps of
+    batch 4 x 1024 on one repeated batch: the forward
+    kernel twice per layer per step and the dQ and dK/dV kernels once, a
+    falling loss, and moe_aux finite and above 0 at every step.
+11. MoE holds, mixtral-8x7b at full width and 2 layers in fp32 (where the
+    kernels keep their FMA paths and a near-tied routing pick does not
+    flip on rounding): a prefill through the kernels against plain
+    attention, with identical routing and logits within phase 3's bound;
+    the engine's every token against a one-shot forward at
+    capacity_factor 4.0 (= E/K, where C = L: nothing is dropped and the
+    routing no longer depends on how a sequence is cut); one training step
+    through the kernels against plain attention, with identical routing
+    and the loss and gradients within phase 5's bounds.
+12. A JSON line of the kernels (with each one's TFLOP/s, its share of the
+    bound and whether it runs on the tensor cores), the card line again,
+    and last the result.
 
 The serving model is freed before the training phases and built again
-(from the same seed) for phase 8. Launch counts are zeroed just before each main-path
-phase (3, 4, 6, 7, 8) and read just after it; launches made to compare or
-time a kernel (2, 5, and 7's 4-layer check) do not count.
+(from the same seed) for phase 8; each MoE phase builds its own model.
+Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
+9, 10) and read just after it; launches made to compare or time a kernel
+(2, 5, the remat checks of 7 and 10, 11) do not count.
 """
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -302,6 +332,13 @@ def bwd_work(q, k, causal, kernel):
     products = 3 if kernel == "flash_bwd_dq" else 4
     nbytes = elems * q.element_size() + 2 * B * H * Lq * 4
     return 2.0 * D * products * kept_pairs(q, k, causal), nbytes
+
+
+def moe_capacity(cfg, L):
+    """An expert layer's slots per expert for L tokens (the package is
+    imported once the card is found)."""
+    from ray_tpu_torch.models.moe import capacity
+    return capacity(cfg, L)
 
 
 def rates(flops, bound_ms, ms):
@@ -676,8 +713,11 @@ def run_generator(models, ops, device="cuda", name="tpu-7b", B=8, P=512,
 def run_engine(model, models, inference, ops, card, device="cuda",
                n_slots=8, max_len=1024, chunk=128, budget=256,
                lens=(100, 230, 370, 480, 610, 700),
-               new=(16, 20, 24, 28, 32, 24)):
-    """Phase 4. Returns flash launches during the engine's run."""
+               new=(16, 20, 24, 28, 32, 24), hold=True):
+    """Phase 4 (and 9, 11). Returns flash launches during the engine's run.
+    hold=False leaves out the check against a one-shot forward (an expert
+    model at a capacity factor under E/K routes a chunk, a decode step and
+    a one-shot forward differently)."""
     vocab = model.cfg.vocab_size
     cfg = inference.EngineConfig(n_slots=n_slots, max_len=max_len,
                                  prefill_chunk=chunk, prefill_budget=budget)
@@ -732,7 +772,8 @@ def run_engine(model, models, inference, ops, card, device="cuda",
           f"flash_fwd launches {launches} (chunked prefill and decode attend "
           f"through the cache) [{card}]", flush=True)
 
-    check_one_shot("engine", model, models, prompts, streams, device)
+    if hold:
+        check_one_shot("engine", model, models, prompts, streams, device)
     return launches
 
 
@@ -778,11 +819,15 @@ def train_fns(models, parallel, cfg, device, B, L, loss_chunk,
 
 
 def run_train_parity(models, parallel, ops, device="cuda", name="tpu-3b",
-                     n_layers=4, B=4, L=1024, loss_chunk=256):
-    """Phase 5: one training step through the kernels and one through
-    plain attention, from the same seeded weights and batch."""
+                     n_layers=4, B=4, L=1024, loss_chunk=256, optimizer=None,
+                     **cfg_kw):
+    """Phase 5 (and 11): one training step through the kernels and one
+    through plain attention, from the same seeded weights and batch. For
+    an expert model the two forwards' routing must be identical.
+    ``optimizer`` (adamw(3e-4) by default) does not touch the gradients
+    compared; cfg_kw changes the config (phase 11: fp32)."""
     cfg = dataclasses.replace(models.MODEL_REGISTRY[name], n_layers=n_layers,
-                              remat=False)
+                              remat=False, **cfg_kw)
     tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
                            generator=torch.Generator(device=device)
                            .manual_seed(2))
@@ -790,24 +835,35 @@ def run_train_parity(models, parallel, ops, device="cuda", name="tpu-3b",
     runs = {}
     for impl, run_cfg in (("kernels", cfg), ("plain", plain)):
         model, init_fn, step_fn = train_fns(models, parallel, run_cfg,
-                                            device, B, L, loss_chunk)
+                                            device, B, L, loss_chunk,
+                                            optimizer)
         state = init_fn(torch.Generator(device=device).manual_seed(0))
         zero_counts(ops)
-        _, metrics = step_fn(state, tokens)
+        with RoutingRecorder(model) as routing:
+            _, metrics = step_fn(state, tokens)
         sync(device)
         runs[impl] = (metrics["loss"].item(), metrics["grad_norm"].item(),
                       {n: p.grad for n, p in model.named_parameters()},
-                      read_counts(ops))
+                      read_counts(ops), routing)
         del model, state, metrics
     want_launches = n_layers if device == "cuda" else 0
-    for impl, (_, _, _, counts) in runs.items():
+    for impl, (_, _, _, counts, _) in runs.items():
         want = want_launches if impl == "kernels" else 0
         if set(counts.values()) != {want}:
             fail(f"train step through {impl} attention launched {counts}, "
                  f"want {want} of each kernel")
 
-    (loss, gnorm, grads, _), (rloss, rgnorm, rgrads, _) = \
+    (loss, gnorm, grads, _, routing), (rloss, rgnorm, rgrads, _, rrouting) = \
         runs["kernels"], runs["plain"]
+    if cfg.n_experts:
+        agree = routing.agreement(rrouting)
+        print(f"train step, {name} width, {n_layers} layers: routing "
+              f"decisions equal between kernels and plain attention "
+              f"{agree.float().mean().item():.6f} of {agree.numel()}",
+              flush=True)
+        if not agree.all():
+            fail("the kernel training step routed otherwise than plain "
+                 "attention")
     rels = sorted(((rel_l2(grads[n], rgrads[n]), n) for n in grads),
                   reverse=True)
     loss_diff, gnorm_rel = abs(loss - rloss), abs(gnorm - rgnorm) / rgnorm
@@ -937,25 +993,41 @@ def run_recipe_parity(models, parallel, device="cuda", name="tpu-3b",
         torch.cuda.empty_cache()
 
 
-def step_model_flops(model, B, L):
-    """A training step's model FLOPs: 6 per parameter per token (the
-    embedding's lookup does no product) plus causal attention's two
-    products, 4*D per kept (query, key) pair forward and twice that
-    backward. Recompute is not counted."""
+def forward_model_flops(model, B, L):
+    """A forward's model FLOPs over B x L tokens: 2 per parameter per token
+    outside the expert layers (the embedding's lookup does no product),
+    causal attention's two products (4*D per kept (query, key) pair) and,
+    for an expert model, each layer's router, its dispatch and combine
+    products and its experts' three GEMMs over every slot of its capacity
+    (the dense dispatch computes empty slots too)."""
     cfg = model.cfg
-    n = sum(p.numel() for p in model.parameters()) - model.embed.numel()
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if ".moe." not in name and name != "embed")
     pairs = B * cfg.n_heads * L * (L + 1) / 2
-    return 6.0 * n * B * L + 3 * 4.0 * cfg.head_dim * pairs * cfg.n_layers
+    flops = 2.0 * n * B * L + 4.0 * cfg.head_dim * pairs * cfg.n_layers
+    if cfg.n_experts:
+        E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+        C = moe_capacity(cfg, L)
+        per_layer = (2.0 * B * L * D * E + 2 * 2.0 * B * L * E * C * D
+                     + 3 * 2.0 * E * B * C * D * F)
+        flops += per_layer * cfg.n_layers
+    return flops
+
+
+def step_model_flops(model, B, L):
+    """A training step's model FLOPs: the forward's and twice that
+    backward. Recompute is not counted."""
+    return 3 * forward_model_flops(model, B, L)
 
 
 def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
                n_layers=None, B=4, L=1024, steps=5, loss_chunk=256,
                lr=3e-4):
-    """Phase 7: the recipe at full width and depth. Returns the kernel
-    launch counts of the run. lr is the recipe's; Adafactor scales its
-    steps by the weights' RMS, so at a rehearsal's llama-debug size 3e-4
-    moves the loss by only ~0.02 in 5 steps, and the rehearsal passes
-    1e-2."""
+    """Phase 7: the recipe at full width and depth (phase 10: an expert
+    model cut to n_layers). Returns the kernel launch counts of the run.
+    lr is the recipe's; Adafactor scales its steps by the weights' RMS, so
+    at a rehearsal's llama-debug size 3e-4 moves the loss by only ~0.02 in
+    5 steps, and the rehearsal passes 1e-2."""
     cfg = recipe_cfg(models, name)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -985,14 +1057,19 @@ def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
         sync(device)
         times.append(time.perf_counter() - t0)
         loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        aux = metrics["moe_aux"].item()
         losses.append(loss)
         step_counts = {k: c - before[k] for k, c in read_counts(ops).items()}
-        print(f"recipe step {i + 1}: loss {loss:.6f}, grad_norm "
+        moe = (f", moe_aux {aux:.6f}, total_loss "
+               f"{metrics['total_loss'].item():.6f}" if cfg.n_experts else "")
+        print(f"recipe step {i + 1}: loss {loss:.6f}{moe}, grad_norm "
               f"{gnorm:.6f}, {times[-1] * 1e3:.1f} ms "
               f"({B * L / times[-1]:.1f} tokens/s), launches {step_counts}",
               flush=True)
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             fail(f"recipe step {i + 1}: loss {loss}, grad_norm {gnorm}")
+        if cfg.n_experts and not (np.isfinite(aux) and aux > 0):
+            fail(f"recipe step {i + 1}: moe_aux {aux}")
         if step_counts != want:
             fail(f"recipe step {i + 1} launched {step_counts}, want {want} "
                  f"(the forward kernel twice per layer: forward and "
@@ -1005,7 +1082,8 @@ def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
         mfu = f"{flops / steady / H100_BF16_FLOPS * 100:.1f}%"
     else:
         peak = mfu = "n/a (CPU)"
-    print(f"recipe {name}: {steps} steps of {B}x{L} tokens, step time "
+    print(f"recipe {name}, {cfg.n_layers} layers: {steps} steps of {B}x{L} "
+          f"tokens, step time "
           f"{steady * 1e3:.1f} ms (median of steps 2-{steps}), "
           f"{B * L / steady:.1f} tokens/s, peak memory allocated {peak}, "
           f"model FLOPs {flops / 1e12:.2f} TFLOP per step, MFU {mfu} of "
@@ -1313,6 +1391,219 @@ def run_engine_features(models, inference, ops, card, device="cuda",
     return counts
 
 
+class RoutingRecorder:
+    """While open, records every expert layer's routing in the forwards a
+    model runs: per layer, a list of (chosen experts [B,L,K] in priority
+    order, kept [B,L,K]), one per call, through the layer's own router. A
+    dense model records nothing."""
+
+    def __init__(self, model):
+        self.layers = [blk.moe for blk in model.layers
+                       if blk.moe is not None]
+        self.calls = [[] for _ in self.layers]
+        self.hooks = []
+
+    def _record(self, i, mod, args):
+        x = args[0]
+        with torch.no_grad():
+            _, _, idx, pos = mod.route(x)
+        self.calls[i].append((idx, pos < moe_capacity(mod.cfg, x.shape[1])))
+
+    def __enter__(self):
+        self.hooks = [moe.register_forward_pre_hook(
+            functools.partial(self._record, i))
+            for i, moe in enumerate(self.layers)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+    def agreement(self, other):
+        """[n_layers, B, L]: True where a token's routing (its experts in
+        order and which picks were kept) equals ``other``'s, in the first
+        forward each recorded."""
+        return torch.stack([
+            ((a[0][0] == b[0][0]) & (a[0][1] == b[0][1])).all(-1)
+            for a, b in zip(self.calls, other.calls)])
+
+    def dropped_share(self):
+        """The share of picks dropped over capacity, in the first forward."""
+        kept = torch.stack([calls[0][1] for calls in self.calls])
+        return 1.0 - kept.float().mean().item()
+
+
+def largest(t):
+    return t.max().item() if t.numel() else 0.0
+
+
+def moe_model(models, cfg, device, seed=0):
+    """A model of cfg with seeded random weights in cfg.dtype."""
+    model = models.TransformerLM(cfg, device="meta")
+    model.load_state_dict(models.init_params(
+        cfg, torch.Generator(device=device).manual_seed(seed), device),
+        assign=True)
+    return model
+
+
+def sharing(models, model, **cfg_kw):
+    """A second model over the same weight tensors, its config changed."""
+    other = models.TransformerLM(dataclasses.replace(model.cfg, **cfg_kw),
+                                 device="meta")
+    other.load_state_dict(model.state_dict(), assign=True)
+    return other
+
+
+def run_moe_serving(models, inference, ops, card, device="cuda",
+                    name="mixtral-8x7b", n_layers=16, B=8, P=512, N=32,
+                    engine=None):
+    """Phase 9. Returns the flash launches of the generator's and the
+    engine's runs."""
+    cfg = dataclasses.replace(models.MODEL_REGISTRY[name], n_layers=n_layers)
+    t0 = time.perf_counter()
+    model = moe_model(models, cfg, device)
+    sync(device)
+    print(f"{name}, {n_layers} of {models.MODEL_REGISTRY[name].n_layers} "
+          f"layers: {models.count_params(model) / 1e9:.3f} B parameters, "
+          f"init {time.perf_counter() - t0:.2f} s", flush=True)
+    _, gen_fn = models.make_generate_fn(model, batch=B, prompt_len=P,
+                                        max_new_tokens=N, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(1))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+    zero_counts(ops)                               # main path: generator
+    t0 = time.perf_counter()
+    out = gen_fn(tokens)
+    sync(device)
+    gen_s = time.perf_counter() - t0
+    counts = read_counts(ops)
+    launches = counts["flash_fwd"]
+    want = n_layers if device == "cuda" else 0
+    print(f"moe generator: {B}x{P} prompt + {N} new tokens in {gen_s:.3f} s "
+          f"({B * N / gen_s:.1f} tokens/s incl. prefill), flash_fwd "
+          f"launches {launches}", flush=True)
+    if launches != want or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]:
+        fail(f"the MoE generator launched {counts}, want {want} of flash_fwd "
+             f"(one per layer on the card) and no backward kernel")
+    if tuple(out.shape) != (B, N) or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.vocab_size:
+        fail(f"MoE generator output {tuple(out.shape)} out of range")
+
+    # the prefill and a decode step timed alone, on the generator's shapes
+    decode_steps = 8
+    with torch.inference_mode():
+        cache = models.init_cache(cfg, B, P + decode_steps, device=device)
+        sync(device)
+        t0 = time.perf_counter()
+        logits, cache = model(tokens, cache=cache)
+        sync(device)
+        prefill_s = time.perf_counter() - t0
+        tok = logits[:, -1].argmax(-1)
+        t0 = time.perf_counter()
+        for _ in range(decode_steps):
+            logits, cache = model(tok[:, None], cache=cache)
+            tok = logits[:, -1].argmax(-1)
+        sync(device)
+        decode_s = (time.perf_counter() - t0) / decode_steps
+        del cache, logits
+    flops = forward_model_flops(model, B, P)
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            if device == "cuda" else "n/a (CPU)")
+    print(f"moe {name}, {n_layers} layers: prefill of {B}x{P} tokens "
+          f"{prefill_s * 1e3:.2f} ms ({flops / 1e12:.2f} TFLOP of model "
+          f"FLOPs, expert GEMMs at capacity; "
+          f"{flops / prefill_s / 1e12:.1f} TFLOP/s, informational), decode "
+          f"step {decode_s * 1e3:.2f} ms (mean of {decode_steps}, "
+          f"{B / decode_s:.1f} tokens/s), peak memory "
+          f"allocated {peak} [{card}]", flush=True)
+
+    # the same weights through plain attention: in bf16 a rounding may
+    # flip a near-tied routing pick, so this is printed, not held (phase
+    # 11 holds the kernels in fp32)
+    ref = sharing(models, model, attention_impl="reference")
+    with torch.inference_mode():
+        with RoutingRecorder(model) as routing:
+            got = model(tokens).float()
+        with RoutingRecorder(ref) as rrouting:
+            want_logits = ref(tokens).float()
+    agree = routing.agreement(rrouting)
+    same = agree.all(0)                              # [B, P]
+    gap = (got - want_logits).abs().amax(-1)         # [B, P]
+    print(f"moe prefill, kernels vs plain attention (bf16, informational): "
+          f"routing decisions equal {agree.float().mean().item():.6f} of "
+          f"{agree.numel()} (token, layer) pairs; positions routed alike in "
+          f"every layer {same.float().mean().item():.4f}, largest logit "
+          f"difference there {largest(gap[same]):.3e} (elsewhere "
+          f"{largest(gap[~same]):.3e}); "
+          f"picks dropped at capacity_factor {cfg.capacity_factor:g} "
+          f"(C={moe_capacity(cfg, P)}): {routing.dropped_share():.4f}",
+          flush=True)
+    if not torch.isfinite(got).all():
+        fail("MoE prefill logits are not finite")
+    del ref, got, want_logits, routing, rrouting
+
+    eng_launches = run_engine(model, models, inference, ops, card,
+                              device=device, hold=False, **(engine or {}))
+    del model
+    release(device)
+    return launches + eng_launches
+
+
+def run_moe_holds(models, parallel, inference, ops, card, device="cuda",
+                  name="mixtral-8x7b", n_layers=2, B=4, L=512, loss_chunk=256,
+                  engine=None):
+    """Phase 11: the expert model in fp32 at a cut depth; the prefill and
+    the training step at B x L tokens."""
+    cfg = dataclasses.replace(models.MODEL_REGISTRY[name], n_layers=n_layers,
+                              dtype=torch.float32)
+    model = moe_model(models, cfg, device)
+    ref = sharing(models, model, attention_impl="reference")
+    tokens = torch.randint(0, cfg.vocab_size, (B, L), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(8))
+    with torch.inference_mode():
+        before = read_counts(ops)["flash_fwd"]
+        with RoutingRecorder(model) as routing:
+            got = model(tokens, cache=models.init_cache(
+                cfg, B, L, device=device))[0]
+        launched = read_counts(ops)["flash_fwd"] - before
+        with RoutingRecorder(ref) as rrouting:
+            want = ref(tokens, cache=models.init_cache(
+                cfg, B, L, device=device))[0]
+    agree = routing.agreement(rrouting)
+    rel = rel_l2(got, want)
+    print(f"moe hold, {name} width, {n_layers} layers, fp32 prefill {B}x{L}, "
+          f"kernels vs plain attention: routing decisions equal "
+          f"{agree.float().mean().item():.6f} of {agree.numel()}, logits "
+          f"relative L2 {rel:.3e} (tol {LOGITS_REL_TOL:g}), max abs "
+          f"{(got - want).abs().max().item():.3e}, flash_fwd launches "
+          f"{launched}", flush=True)
+    if launched != (n_layers if device == "cuda" else 0):
+        fail(f"the fp32 MoE prefill launched flash_fwd {launched} times")
+    if not agree.all() or not torch.isfinite(got).all() \
+            or rel > LOGITS_REL_TOL:
+        fail("the fp32 MoE prefill through the kernels disagrees with plain "
+             "attention")
+    del ref, got, want, routing, rrouting
+
+    # at capacity_factor E/K every expert has C = L slots: the engine's
+    # chunks and decode steps route as the one-shot forward does
+    wide = sharing(models, model, capacity_factor=cfg.n_experts
+                   / cfg.expert_top_k)
+    run_engine(wide, models, inference, ops, card, device=device,
+               **(engine or {}))
+    del wide, model
+    release(device)
+    # adafactor's factored moments are small, so the first run's fp32
+    # gradients fit beside the second run (AdamW's moments would not)
+    run_train_parity(models, parallel, ops, device=device, name=name,
+                     n_layers=n_layers, B=B, L=L, loss_chunk=loss_chunk,
+                     optimizer=parallel.adafactor(3e-4), dtype=torch.float32)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
@@ -1356,10 +1647,19 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     feature_counts = run_engine_features(models, inference, ops, card)
+    moe_serve_launches = run_moe_serving(models, inference, ops, card)
+    run_recipe_parity(models, parallel, name="mixtral-8x7b")
+    moe_train_counts = run_recipe(models, parallel, ops, card,
+                                  name="mixtral-8x7b", n_layers=4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_moe_holds(models, parallel, inference, ops, card)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
-                                     + feature_counts.get(name, 0))
-    records["flash_fwd"]["launches"] += gen_launches + eng_launches
+                                     + feature_counts.get(name, 0)
+                                     + moe_train_counts[name])
+    records["flash_fwd"]["launches"] += (gen_launches + eng_launches
+                                         + moe_serve_launches)
     for name in KERNELS:
         if records[name]["launches"] == 0:
             fail(f"the main path never launched {name}")

@@ -35,7 +35,7 @@ MODEL_REGISTRY = {
     "tpu-7b": TransformerConfig(
         vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
         n_kv_heads=8, d_ff=11264, max_seq_len=4096),
-    # MoE family (not ported yet: building one raises NotImplementedError)
+    # MoE family (models/moe.py)
     "moe-debug": TransformerConfig(
         vocab_size=1024, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2,
         d_ff=512, max_seq_len=512, n_experts=4, expert_top_k=2),

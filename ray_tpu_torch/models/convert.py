@@ -26,8 +26,23 @@ from ray_tpu_torch.models.transformer import TransformerConfig
 # is 1/fan_in; this constant is the std of the unit normal truncated there
 _TRUNC_STD = 0.87962566103423978
 
-_LINEARS = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"),
-            ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
+_ATTN = (("attn", "q"), ("attn", "k"), ("attn", "v"), ("attn", "o"))
+_MLP = (("mlp", "gate"), ("mlp", "up"), ("mlp", "down"))
+# an expert layer's weights: bare params in the JAX tree (no "kernel")
+_MOE = ("router", "gate", "up", "down")
+
+
+def _linears(moe: bool):
+    """(module, name) of a block's 2-D linears: an expert block has no
+    ``mlp``."""
+    return _ATTN if moe else _ATTN + _MLP
+
+
+def _moe_shape(cfg: TransformerConfig, name: str):
+    """An expert-layer weight's shape in one layer (the JAX shape too)."""
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+    return {"router": (D, E), "gate": (E, D, F), "up": (E, D, F),
+            "down": (E, F, D)}[name]
 
 
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
@@ -35,19 +50,23 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     ``load_state_dict`` casts them to the model's)."""
     blk = tree["layers"]["block"]
     n_layers = np.asarray(blk["attn_norm"]["scale"]).shape[0]
+    moe = "moe" in blk
     sd = {"embed": torch.from_numpy(np.array(tree["embed"])),
           "final_norm.scale": torch.from_numpy(
               np.array(tree["final_norm"]["scale"]))}
     if "unembed" in tree:
         sd["unembed"] = torch.from_numpy(np.array(tree["unembed"]))
     for i in range(n_layers):
-        for mod, name in _LINEARS:
+        for mod, name in _linears(moe):
             w = np.array(blk[mod][name]["kernel"][i])
             if name == "o":                  # [H, D, d_model]
                 w = w.reshape(-1, w.shape[-1])
             else:                            # [d_model, (H|Hkv, D) | d_ff]
                 w = w.reshape(w.shape[0], -1)
             sd[f"layers.{i}.{mod}.{name}"] = torch.from_numpy(w)
+        for name in _MOE if moe else ():
+            sd[f"layers.{i}.moe.{name}"] = torch.from_numpy(
+                np.array(blk["moe"][name][i]))
         for norm in ("attn_norm", "mlp_norm"):
             sd[f"layers.{i}.{norm}.scale"] = torch.from_numpy(
                 np.array(blk[norm]["scale"][i]))
@@ -74,12 +93,17 @@ def jax_leaf_groups(model) -> List[dict]:
     n = cfg.n_layers
     groups = [{"params": [model.embed], "name": "embed",
                "shape": tuple(model.embed.shape), "stacked": False}]
-    for mod, name in _LINEARS:
+    for mod, name in _linears(cfg.n_experts > 0):
         groups.append({
             "params": [getattr(getattr(blk, mod), name)
                        for blk in model.layers],
             "name": f"layers/block/{mod}/{name}/kernel",
             "shape": (n,) + _linear_shape(cfg, name), "stacked": True})
+    for name in _MOE if cfg.n_experts > 0 else ():
+        groups.append({
+            "params": [getattr(blk.moe, name) for blk in model.layers],
+            "name": f"layers/block/moe/{name}",
+            "shape": (n,) + _moe_shape(cfg, name), "stacked": True})
     for norm in ("attn_norm", "mlp_norm"):
         groups.append({
             "params": [getattr(blk, norm).scale for blk in model.layers],
@@ -108,10 +132,11 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 ) -> Dict[str, torch.Tensor]:
     """Seeded random weights as a state_dict on ``device``: lecun_normal
     kernels, normal(0.02) embed/unembed, ones for the norm scales (the JAX
-    model's initialisers). Linear and embedding weights in ``dtype``:
+    model's initialisers; a 3-D expert weight's fan-in counts its experts,
+    as flax's does). Linear, expert and embedding weights in ``dtype``:
     by default ``cfg.dtype``, the serving storage; the trainer passes
-    ``cfg.param_dtype`` (fp32 master weights). Norm scales in fp32.
-    ``generator`` lives on ``device``."""
+    ``cfg.param_dtype`` (fp32 master weights). Norm scales and the router
+    in fp32, as in the JAX model. ``generator`` lives on ``device``."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
     E, F, HD = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.head_dim
@@ -123,12 +148,18 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         w = torch.empty(shape, dtype=torch.float32, device=dev)
         return w.normal_(0.0, 0.02, generator=generator).to(dtype)
 
+    moe = cfg.n_experts > 0
     sd = {"embed": normal02((cfg.vocab_size, E))}
     for i in range(cfg.n_layers):
-        for mod, name in _LINEARS:
+        for mod, name in _linears(moe):
             shape = shapes[name]
             sd[f"layers.{i}.{mod}.{name}"] = _lecun_normal(
                 shape, shape[0], generator, dev, dtype)
+        for name in _MOE if moe else ():
+            shape = _moe_shape(cfg, name)
+            sd[f"layers.{i}.moe.{name}"] = _lecun_normal(
+                shape, math.prod(shape[:-1]), generator, dev,
+                torch.float32 if name == "router" else dtype)
         for norm in ("attn_norm", "mlp_norm"):
             sd[f"layers.{i}.{norm}.scale"] = torch.ones(
                 E, dtype=torch.float32, device=dev)

@@ -12,7 +12,10 @@ storage, where the cast is free), ``cfg.param_dtype`` (fp32 master
 weights) where the trainer's ``init_fn`` loads them. Weights keep
 the JAX layout flattened to 2-D ([in, out], e.g. q is [d_model, H * D]),
 so ``models/convert.py`` maps a flax tree one to one. The forward without
-a cache carries autograd end to end: it writes nothing in place.
+a cache carries autograd end to end: it writes nothing in place. With
+``n_experts > 0`` every block's MLP is the expert layer of
+``models/moe.py``, whose load-balancing loss the training forward returns
+to a caller that asks for it (``return_aux``).
 
 Activation recompute follows the JAX model's ``remat``/``remat_policy``:
 each block of a training forward runs under
@@ -43,6 +46,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.models.moe import MoEMLP
 from ray_tpu_torch.ops.dispatch import attention as attention_dispatch
 
 
@@ -71,9 +75,13 @@ class TransformerConfig:
     logits_fp32: bool = False
     # "auto"/"flash": the flash kernel; "reference": plain attention
     attention_impl: str = "auto"
-    # Mixture-of-Experts (not ported yet): n_experts=0 is a dense MLP
+    # Mixture-of-Experts: n_experts=0 is a dense MLP in every block;
+    # n_experts>0 replaces every MLP with a top-k-routed expert layer
+    # (models/moe.py), whose aux loss the trainer weighs by router_aux_coef
     n_experts: int = 0
     expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
 
     @property
     def head_dim(self) -> int:
@@ -249,24 +257,33 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """Attention and a feed-forward: the dense ``mlp``, or the ``moe``
+    expert layer when ``cfg.n_experts > 0``."""
+
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP.md, Queue A item A5)")
         self.attn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
         self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype, device)
-        self.mlp = MLP(cfg, device)
+        moe = cfg.n_experts > 0
+        self.moe = MoEMLP(cfg, device) if moe else None
+        self.mlp = None if moe else MLP(cfg, device)
 
     def forward(self, x, positions, cache=None, chunked: bool = False):
+        """Without a cache -> (out, aux): the expert layer's aux loss, None
+        for a dense block. With a cache -> (out, new_cache); the aux loss
+        is dropped, as the JAX model's decode scan drops it."""
         att = self.attn(self.attn_norm(x), positions, cache, chunked)
         new_cache = None
         if cache is not None:
             att, new_cache = att
         h = x + att
-        out = h + self.mlp(self.mlp_norm(h))
-        return out if cache is None else (out, new_cache)
+        normed = self.mlp_norm(h)
+        if self.moe is not None:
+            y, aux = self.moe(normed)
+        else:
+            y, aux = self.mlp(normed), None
+        return (h + y, aux) if cache is None else (h + y, new_cache)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -302,9 +319,15 @@ class TransformerLM(nn.Module):
                         device=dev))
 
     def forward(self, tokens, positions=None, return_hidden: bool = False,
-                cache=None, chunked_prefill: bool = False):
+                cache=None, chunked_prefill: bool = False,
+                return_aux: bool = False):
         """tokens [B,L] -> logits [B,L,V] (or the final-norm hidden states
         with ``return_hidden``); with a cache -> (logits, new_cache).
+
+        return_aux=True (without a cache): -> (logits or hidden, aux), aux
+        the sum of the expert layers' load-balancing losses (an fp32 scalar,
+        0 for a dense model), which the JAX model sows into its
+        ``losses/moe_aux`` collection. A forward with a cache computes none.
 
         chunked_prefill=True (needs a cache): this L>1 forward CONTINUES a
         partly filled cache, attending it at the causal offset cache["idx"],
@@ -321,14 +344,18 @@ class TransformerLM(nn.Module):
         cfg = self.cfg
         context_fn = remat_context_fn(cfg.remat_policy) if cfg.remat \
             else None
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.layers:
             if context_fn is not None and torch.is_grad_enabled():
-                x = checkpoint(block, x, positions, use_reentrant=False,
-                               context_fn=context_fn)
+                x, aux = checkpoint(block, x, positions, use_reentrant=False,
+                                    context_fn=context_fn)
             else:
-                x = block(x, positions)
+                x, aux = block(x, positions)
+            if aux is not None:
+                aux_total = aux_total + aux
         x = self.final_norm(x)
-        return x if return_hidden else self._logits(x)
+        out = x if return_hidden else self._logits(x)
+        return (out, aux_total) if return_aux else out
 
     def unembed_weight(self):
         """The [d_model, vocab] output projection in ``cfg.dtype``: the

@@ -11,7 +11,10 @@ gradients arrive in the parameters' dtype, as JAX's AD returns them: fp32
 master weights by default, or bf16 weights and gradients with
 ``param_dtype=torch.bfloat16`` (the JAX bench's recipe); RMSNorm scales
 stay fp32 in both. Each block runs under activation recompute as
-``cfg.remat``/``cfg.remat_policy`` say. The optimizer is built over one
+``cfg.remat``/``cfg.remat_policy`` say. For an expert model
+(``cfg.n_experts > 0``) the loss differentiated is the cross-entropy plus
+``cfg.router_aux_coef`` times the expert layers' load-balancing loss, as
+in the JAX step. The optimizer is built over one
 param group per JAX leaf (``models.jax_leaf_groups``), which optax's
 per-leaf rules (``parallel.optim.adafactor``) need.
 
@@ -120,10 +123,12 @@ def make_train_fns(model: TransformerLM,
     ``tokens[:, :-1]``, targets ``tokens[:, 1:]``, the loss mask
     ``mask[:, 1:]``. It updates the model and optimizer in place, advances
     ``state.step``, and returns the metrics ``loss`` (cross-entropy),
-    ``total_loss`` (what was differentiated), ``moe_aux`` (0: MoE is not
-    ported), ``grad_norm`` (global L2 norm of the gradients before the
-    update) and ``tokens`` (the loss's denominator). ``loss_chunk`` turns
-    on ``chunked_cross_entropy``.
+    ``total_loss`` (what was differentiated: for an expert model
+    ``loss + cfg.router_aux_coef * moe_aux``, else ``loss``), ``moe_aux``
+    (the expert layers' summed load-balancing loss, 0 for a dense model),
+    ``grad_norm`` (global L2 norm of the gradients before the update) and
+    ``tokens`` (the loss's denominator). ``loss_chunk`` turns on
+    ``chunked_cross_entropy``.
 
     Unlike the JAX function it takes no mesh, sharding rules or profiler
     and returns no sharding tree (see the module docstring)."""
@@ -138,13 +143,18 @@ def make_train_fns(model: TransformerLM,
                           optimizer=optimizer(jax_leaf_groups(model)))
 
     def loss_fn(tokens, mask):
+        """-> (cross-entropy, its denominator, the MoE aux loss)."""
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         tgt_mask = None if mask is None else mask[:, 1:]
+        out, aux = model(inputs, return_hidden=bool(loss_chunk),
+                         return_aux=True)
         if loss_chunk:
-            h = model(inputs, return_hidden=True)
-            return chunked_cross_entropy(h, model.unembed_weight(), targets,
-                                         tgt_mask, chunk=loss_chunk)
-        return cross_entropy_loss(model(inputs), targets, tgt_mask)
+            ce, denom = chunked_cross_entropy(
+                out, model.unembed_weight(), targets, tgt_mask,
+                chunk=loss_chunk)
+        else:
+            ce, denom = cross_entropy_loss(out, targets, tgt_mask)
+        return ce, denom, aux
 
     def step_fn(state: TrainState, tokens, mask=None):
         tokens = torch.as_tensor(tokens, device=dev)
@@ -154,16 +164,15 @@ def make_train_fns(model: TransformerLM,
         if mask is not None:
             mask = torch.as_tensor(mask, device=dev)
         state.optimizer.zero_grad(set_to_none=True)
-        ce, denom = loss_fn(tokens, mask)
-        # a dense model has no router: its MoE aux loss is 0
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
-        loss = ce
+        ce, denom, aux = loss_fn(tokens, mask)
+        loss = ce + cfg.router_aux_coef * aux if cfg.n_experts > 0 else ce
         loss.backward()
         gnorm = torch.nn.utils.get_total_norm(
             [p.grad for p in state.model.parameters() if p.grad is not None])
         state.optimizer.step()
         state.step += 1
         return state, {"loss": ce.detach(), "total_loss": loss.detach(),
-                       "moe_aux": aux, "grad_norm": gnorm, "tokens": denom}
+                       "moe_aux": aux.detach(), "grad_norm": gnorm,
+                       "tokens": denom}
 
     return init_fn, step_fn

@@ -1,9 +1,11 @@
-"""Where the serving path's time goes on the card, for tpu-7b.
+"""Where the serving path's time goes on the card.
 
-    python -m ray_tpu_torch.trace_serving
+    python -m ray_tpu_torch.trace_serving [--model tpu-7b] [--layers N]
 
-Builds tpu-7b at full width and depth with seeded random weights, then, at
-batch 8 and prompt 512 (the shape of chip_smoke.py's generator phase):
+Builds a model of ``MODEL_REGISTRY`` (tpu-7b by default) at full width
+with seeded random weights, at its full depth or cut to ``--layers``
+(mixtral-8x7b does not fit in 80 GB whole), then, at batch 8 and prompt
+512 (the shape of chip_smoke.py's generator phases):
 
 1. times the generator's one-shot prefill and its single-token decode
    steps (host clock around work that ends in a synchronise);
@@ -19,6 +21,8 @@ timing and kernel-row counting here.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import subprocess
 import time
 
@@ -51,11 +55,30 @@ def _device_us(evt):
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-# kernel families by name: the port's kernels, cuBLAS GEMMs, and the
-# multi-tensor kernels of the optimizer and the gradient norm
+# kernel families by name: the port's kernels, cuBLAS GEMMs, the
+# multi-tensor kernels of the optimizer and the gradient norm, and the sort
+# and cumulative sum of an expert layer's routing
 FAMILIES = (("flash attention (ours)", ("flash_",)),
             ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
-            ("multi-tensor (AdamW, grad norm)", ("multi_tensor_apply",)))
+            ("multi-tensor (AdamW, grad norm)", ("multi_tensor_apply",)),
+            ("sort and scan (MoE routing)", ("sort", "Sort", "scan", "Scan")))
+
+
+def model_args(description, model, layers=None):
+    """The traces' options: a registry model and an optional cut depth."""
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--model", default=model,
+                        choices=sorted(MODEL_REGISTRY))
+    parser.add_argument("--layers", type=int, default=layers,
+                        help="cut the model to this many layers")
+    return parser
+
+
+def model_config(args):
+    cfg = MODEL_REGISTRY[args.model]
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    return cfg
 
 
 def report(title, prof, wall_ms, top=12):
@@ -95,11 +118,14 @@ def card_line():
 
 
 def main():
+    args = model_args("Time and trace the serving path on the card.",
+                      "tpu-7b").parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = card_line()
     print(f"card: {card}")
-    cfg = MODEL_REGISTRY["tpu-7b"]
+    cfg = model_config(args)
+    name = f"{args.model}, {cfg.n_layers} layers"
     model = TransformerLM(cfg, device="meta")
     model.load_state_dict(init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
@@ -126,7 +152,8 @@ def main():
 
         decode()                                   # warm-up
         decode_ms = timed_ms(decode, STEPS)
-        print(f"generator, B={B}: prefill of {P} tokens {prefill_ms:.2f} ms"
+        print(f"{name}: generator, B={B}: prefill of {P} tokens "
+              f"{prefill_ms:.2f} ms"
               f", decode step {decode_ms:.2f} ms ({B * 1e3 / decode_ms:.1f} "
               f"tokens/s)")
 
@@ -151,7 +178,7 @@ def main():
         eng.step()
     eng.step()                                     # warm-up
     step_ms = timed_ms(eng.step, STEPS)
-    print(f"engine, {B} slots occupied at ~{P} tokens: decode step "
+    print(f"{name}: engine, {B} slots occupied at ~{P} tokens: decode step "
           f"{step_ms:.2f} ms ({B * 1e3 / step_ms:.1f} tokens/s)")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -1,18 +1,22 @@
-"""Where a training step's time goes on the card, for tpu-3b.
+"""Where a training step's time goes on the card.
 
-    python -m ray_tpu_torch.trace_train
+    python -m ray_tpu_torch.trace_train [--model tpu-3b] [--layers N]
+                                        [--settings fp32,dots,nothing,off]
 
-Builds tpu-3b at full width and depth with seeded weights and trains it,
-batch 4 x 1024, loss_chunk 256, one repeated batch, in four settings:
+Builds a model of ``MODEL_REGISTRY`` (tpu-3b by default) at full width
+with seeded weights, at its full depth or cut to ``--layers``, and trains
+it, batch 4 x 1024, loss_chunk 256, one repeated batch, in four settings
+(``--settings`` runs some of them: fp32 AdamW keeps 16 bytes per
+parameter, which a 4-layer mixtral-8x7b, 6.07 B parameters, does not fit):
 
-- fp32 master weights, adamw(3e-4), no activation recompute (chip_smoke.py
-  phase 6);
-- the JAX bench's recipe: bf16 weights, adafactor(3e-4), remat "dots"
-  (chip_smoke.py phase 7);
-- the same recipe with remat "nothing" (plain checkpointing, which
-  recomputes the products too but runs no per-op policy) and without
-  remat, timed only: the recompute's share of the recipe's step is the
-  difference of the step times.
+- ``fp32``: fp32 master weights, adamw(3e-4), no activation recompute
+  (chip_smoke.py phase 6);
+- ``dots``: the JAX bench's recipe: bf16 weights, adafactor(3e-4), remat
+  "dots" (chip_smoke.py phase 7, and the MoE training phase);
+- ``nothing`` and ``off``: the same recipe with remat "nothing" (plain
+  checkpointing, which recomputes the products too but runs no per-op
+  policy) and without remat, timed only: the recompute's share of the
+  recipe's step is the difference of the step times.
 
 For each it times steps after two warm-up steps (host clock around work
 that ends in a synchronise), with tokens/s and the peak memory allocated,
@@ -33,9 +37,10 @@ import gc
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ray_tpu_torch.models import MODEL_REGISTRY, TransformerLM
+from ray_tpu_torch.models import TransformerLM
 from ray_tpu_torch.parallel import adafactor, adamw, make_train_fns
-from ray_tpu_torch.trace_serving import card_line, report, timed_ms
+from ray_tpu_torch.trace_serving import (card_line, model_args, model_config,
+                                         report, timed_ms)
 
 B = 4        # sequences per step
 L = 1024     # tokens per sequence
@@ -58,7 +63,7 @@ def run(title, cfg, optimizer, traced=True):
     step()                                         # warm-up
     torch.cuda.reset_peak_memory_stats()
     step_ms = timed_ms(step, STEPS)
-    print(f"{title}, tpu-3b, B={B} L={L}: step {step_ms:.2f} ms "
+    print(f"{title}, B={B} L={L}: step {step_ms:.2f} ms "
           f"({B * L * 1e3 / step_ms:.1f} tokens/s), peak memory allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     opt_ms = timed_ms(state.optimizer.step, STEPS)
@@ -76,28 +81,45 @@ def run(title, cfg, optimizer, traced=True):
     return step_ms
 
 
+SETTINGS = ("fp32", "dots", "nothing", "off")
+
+
 def main():
+    parser = model_args("Time and trace a training step on the card.",
+                        "tpu-3b")
+    parser.add_argument("--settings", default=",".join(SETTINGS),
+                        help="comma-separated, of " + ", ".join(SETTINGS))
+    args = parser.parse_args()
+    settings = args.settings.split(",")
+    if not set(settings) <= set(SETTINGS):
+        parser.error(f"--settings {args.settings}: of {SETTINGS}")
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     card = card_line()
     print(f"card: {card}")
-    base = MODEL_REGISTRY["tpu-3b"]
-    run("fp32 AdamW, no remat", dataclasses.replace(base, remat=False),
-        adamw(3e-4))
+    base = model_config(args)
+    name = f"{args.model}, {base.n_layers} layers"
     recipe = dataclasses.replace(base, param_dtype=torch.bfloat16,
                                  remat=True, remat_policy="dots")
-    with_remat = run("recipe (bf16, Adafactor, remat dots)", recipe,
-                     adafactor(3e-4))
-    nothing = run("recipe with remat nothing",
-                  dataclasses.replace(recipe, remat_policy="nothing"),
-                  adafactor(3e-4), traced=False)
-    without = run("recipe without remat",
-                  dataclasses.replace(recipe, remat=False), adafactor(3e-4),
-                  traced=False)
-    for policy, ms in (("dots", with_remat), ("nothing", nothing)):
-        print(f"recompute's share of the recipe's step under remat "
-              f"{policy}: {ms - without:.2f} ms "
-              f"({100 * (ms - without) / ms:.1f}%)")
+    runs = {
+        "fp32": (f"{name}: fp32 AdamW, no remat",
+                 dataclasses.replace(base, remat=False), adamw, True),
+        "dots": (f"{name}: recipe (bf16, Adafactor, remat dots)", recipe,
+                 adafactor, True),
+        "nothing": (f"{name}: recipe with remat nothing",
+                    dataclasses.replace(recipe, remat_policy="nothing"),
+                    adafactor, False),
+        "off": (f"{name}: recipe without remat",
+                dataclasses.replace(recipe, remat=False), adafactor, False),
+    }
+    ms = {s: run(title, cfg, opt(3e-4), traced)
+          for s, (title, cfg, opt, traced) in runs.items() if s in settings}
+    for policy in ("dots", "nothing"):
+        if policy in ms and "off" in ms:
+            extra = ms[policy] - ms["off"]
+            print(f"recompute's share of the recipe's step under remat "
+                  f"{policy}: {extra:.2f} ms "
+                  f"({100 * extra / ms[policy]:.1f}%)")
     print(f"card: {card}")
 
 
