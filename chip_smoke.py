@@ -92,15 +92,36 @@ Phases, each of which must pass (any failure exits non-zero):
     routing no longer depends on how a sequence is cut); one training step
     through the kernels against plain attention, with identical routing
     and the loss and gradients within phase 5's bounds.
-12. A JSON line of the kernels (with each one's TFLOP/s, its share of the
-    bound and whether it runs on the tensor cores), the card line again,
-    and last the result.
+12. The device mesh (parallel/mesh.py) on a world of one rank: an NCCL
+    process group started from an in-process store and make_mesh over it,
+    so every parameter is a DTensor and attention runs as a local_map
+    island, as on a larger world. (a) The recipe on tpu-3b at full width
+    and depth through make_train_fns(mesh=...) against the no-mesh
+    trainer from the same seed and batch, their 5 steps taken in turns:
+    each step's loss and grad_norm within phase 7's bound, the same kernel
+    launches, and both step times with their ratio. (b) tpu-7b at full
+    width and depth: make_infer_fns' last-position logits against the
+    no-mesh forward (phase 3's bound), make_generate_fn(mesh=...) greedy,
+    8x512 + 16 tokens, against the no-mesh generator (equal streams, or
+    the first difference at a near-tie as phase 8 holds spec decoding),
+    and the prefill and decode-step times of both, taken in turns. (c)
+    The dispatch under the mesh at the prefill's attention shapes:
+    sharded_local launches B1 on TMA-readable local shards and equals
+    flash_attention; ring (seq=1) equals plain attention within phase 3's
+    bound. (d) mixtral-8x7b at full width and 4 layers on a mesh whose
+    one dim is ``expert`` (the stacked experts sharded over it): two
+    recipe steps against two no-mesh steps, as (a), one model at a time.
+13. A JSON line of the kernels (with each one's TFLOP/s, its share of the
+    bound, whether it runs on the tensor cores and its launches on the
+    mesh's paths), the card line again, and last the result.
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
 Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
-9, 10) and read just after it; launches made to compare or time a kernel
-(2, 5, the remat checks of 7 and 10, 11) do not count.
+9, 10, 12) and read just after it; launches made to compare or time a
+kernel (2, 5, the remat checks of 7 and 10, 11, phase 12's no-mesh
+generator and its dispatch check) do not count. Phase 12's no-mesh
+trainers are the steps its mesh steps are held to, and count.
 """
 
 import dataclasses
@@ -812,7 +833,7 @@ def train_fns(models, parallel, cfg, device, B, L, loss_chunk,
     activation recompute (phases 5 and 6, whose numbers PERF.md compares
     across PRs); phase 7 passes its recipe's config and optimizer."""
     model = models.TransformerLM(cfg, device="meta")
-    init_fn, step_fn = parallel.make_train_fns(
+    init_fn, step_fn, _ = parallel.make_train_fns(
         model, optimizer or parallel.adamw(3e-4), batch_shape=(B, L + 1),
         loss_chunk=loss_chunk, device=device)
     return model, init_fn, step_fn
@@ -1238,11 +1259,13 @@ def run_kv_handoff(model, inference, ops, exporter, cfg, prompts, got,
     serve the prompt from them with the exporter's greedy tokens."""
     importer = inference.InferenceEngine(model, cfg, device=device, seed=0)
     chosen = [g[1] for g in prompts]
-    n_bytes, covered = 0, 0
+    n_bytes, covered, dtypes = 0, 0, set()
     t0 = time.perf_counter()
     for p in chosen:
         c, spans = exporter.export_kv_blocks(p)
         n_bytes += sum(a.nbytes for span in spans for a in span)
+        dtypes |= {f"{a.dtype}:{a.dtype.itemsize}B" for span in spans
+                   for a in span}
         covered += importer.import_kv_blocks(p, spans)
     hand_s = time.perf_counter() - t0
     hs = serve(importer, chosen, new, ops, counts)
@@ -1250,8 +1273,9 @@ def run_kv_handoff(model, inference, ops, exporter, cfg, prompts, got,
     want = [got[g * per_prefix + 1] for g in range(len(prompts))]
     matched = [h.prefix_matched for h in hs]
     print(f"kv hand-off kv_quant={cfg.kv_quant}: {len(chosen)} prompts, "
-          f"{covered} tokens imported in {n_bytes / 2**20:.1f} MiB of host "
-          f"spans ({hand_s * 1e3:.1f} ms export + import), matched "
+          f"{covered} tokens imported in {n_bytes / 2**20:.1f} MiB "
+          f"({n_bytes} bytes) of host spans of {sorted(dtypes)} "
+          f"({hand_s * 1e3:.1f} ms export + import), matched "
           f"{matched}, importer tokens equal to the exporter's: "
           f"{sum(t == w for t, w in zip(tokens, want))}/{len(chosen)}",
           flush=True)
@@ -1604,6 +1628,284 @@ def run_moe_holds(models, parallel, inference, ops, card, device="cuda",
                      optimizer=parallel.adafactor(3e-4), dtype=torch.float32)
 
 
+def mesh_of(parallel, device, **axes):
+    """Phase 12's mesh: the default process group as a world of one rank
+    (NCCL on the card, gloo on a CPU rehearsal; started once, from an
+    in-process store, no MASTER_ADDR), and a mesh over it."""
+    parallel.init_world(device=device)
+    return parallel.make_mesh(parallel.MeshConfig(**axes),
+                              device_type=device)
+
+
+def mesh_step_pair(models, parallel, ops, device, cfg, mesh, B, L, steps,
+                   loss_chunk, lr, together):
+    """Train cfg's recipe from seed 0 with and without the mesh on one
+    batch. With ``together`` both models live at once and their steps
+    alternate (no mesh, mesh, mesh, no mesh, ...), so a drift of the
+    card's clocks hits both alike; else the no-mesh run goes first and is
+    freed, and each run's peak memory is taken. Returns {label: (metrics
+    of every step, step times, launch counts of every step, peak bytes
+    allocated or None)}."""
+    tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(3))
+    runs = {}
+
+    def build(label):
+        model = models.TransformerLM(cfg, device="meta")
+        init_fn, step_fn, shardings = parallel.make_train_fns(
+            model, parallel.adafactor(lr), mesh=mesh if label == "mesh"
+            else None, batch_shape=(B, L + 1), loss_chunk=loss_chunk,
+            device=device)
+        state = init_fn(torch.Generator(device=device).manual_seed(0))
+        runs[label] = {"state": state, "step": step_fn, "metrics": [],
+                       "times": [], "counts": [], "peak": None}
+
+    def step(label):
+        run = runs[label]
+        before = read_counts(ops)
+        t0 = time.perf_counter()
+        run["state"], metrics = run["step"](run["state"], tokens)
+        sync(device)
+        run["times"].append(time.perf_counter() - t0)
+        run["metrics"].append({k: float(v) for k, v in metrics.items()})
+        run["counts"].append({k: c - before[k]
+                              for k, c in read_counts(ops).items()})
+
+    order = [("no mesh", "mesh") if i % 2 == 0 else ("mesh", "no mesh")
+             for i in range(steps)]
+    if together:
+        build("no mesh")
+        build("mesh")
+        for pair in order:
+            for label in pair:
+                step(label)
+    else:
+        for label in ("no mesh", "mesh"):
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            build(label)
+            for _ in range(steps):
+                step(label)
+            if device == "cuda":
+                runs[label]["peak"] = torch.cuda.max_memory_allocated()
+            # the step function holds the model (and its gradients) too
+            runs[label]["state"] = runs[label]["step"] = None
+            release(device)
+    out = {label: (r["metrics"], r["times"], r["counts"], r["peak"])
+           for label, r in runs.items()}
+    del runs
+    release(device)
+    return out
+
+
+def check_mesh_steps(what, cfg, runs, card, device):
+    """The mesh's steps against the no-mesh steps: each step's loss and
+    grad_norm within phase 7's recipe bound, equal kernel launches (the
+    recipe's: the forward kernel twice per layer, dQ and dK/dV once), the
+    step times, median [min, max] of steps 2 on, with their ratio, and
+    each run's peak memory where it was taken."""
+    (m0, t0, c0, p0), (m1, t1, c1, p1) = runs["no mesh"], runs["mesh"]
+    n = cfg.n_layers if device == "cuda" else 0
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    for i, (a, b, ca, cb) in enumerate(zip(m0, m1, c0, c1)):
+        rels = {k: abs(b[k] - a[k]) / max(abs(a[k]), 1e-30)
+                for k in ("loss", "grad_norm", "moe_aux") if a[k]}
+        print(f"{what} step {i + 1}: loss {a['loss']:.6f} (no mesh) vs "
+              f"{b['loss']:.6f} (mesh), grad_norm {a['grad_norm']:.6f} vs "
+              f"{b['grad_norm']:.6f}, relative differences "
+              f"{ {k: f'{v:.3e}' for k, v in rels.items()} } (tol "
+              f"{RECIPE_REMAT_REL_L2:g}), launches {ca} vs {cb}", flush=True)
+        if not all(np.isfinite(v) for v in b.values()) or \
+                max(rels.values()) > RECIPE_REMAT_REL_L2:
+            fail(f"{what} step {i + 1}: the mesh step disagrees with the "
+                 f"no-mesh step")
+        if ca != want or cb != ca:
+            fail(f"{what} step {i + 1}: launches {cb} (mesh) and {ca} (no "
+                 f"mesh), want {want} each")
+    if len(t0) > 1:
+        (a, alo, ahi), (b, blo, bhi) = (median_spread(t[1:]) for t in (t0, t1))
+        print(f"{what}: step time no mesh {a * 1e3:.1f} ms [{alo * 1e3:.1f}, "
+              f"{ahi * 1e3:.1f}], mesh {b * 1e3:.1f} ms [{blo * 1e3:.1f}, "
+              f"{bhi * 1e3:.1f}] (median [min, max] of steps 2-{len(t0)}), "
+              f"mesh/no mesh {b / a:.3f} [{card}]", flush=True)
+    if p0 is not None:
+        print(f"{what}: peak memory allocated no mesh {p0 / 2**30:.2f} GiB, "
+              f"mesh {p1 / 2**30:.2f} GiB", flush=True)
+
+
+def run_mesh_train(models, parallel, ops, card, device="cuda",
+                   name="tpu-3b", n_layers=None, B=4, L=1024, steps=5,
+                   loss_chunk=256, lr=3e-4, together=True, **axes):
+    """Phase 12 (a) and (d): the recipe through make_train_fns(mesh=...)
+    on a world of one rank against the no-mesh trainer. Returns the
+    launch counts of both runs."""
+    cfg = recipe_cfg(models, name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    mesh = mesh_of(parallel, device, **(axes or {"fsdp": -1}))
+    zero_counts(ops)                   # main path: the mesh's trainers
+    runs = mesh_step_pair(models, parallel, ops, device, cfg, mesh, B, L,
+                          steps, loss_chunk, lr, together)
+    counts = read_counts(ops)
+    print(f"mesh {mesh.mesh_dim_names} {tuple(mesh.shape)}, recipe "
+          f"{name}, {cfg.n_layers} layers, {steps} steps of {B}x{L}:",
+          flush=True)
+    check_mesh_steps(f"mesh recipe {name}", cfg, runs, card, device)
+    return counts
+
+
+def generate_times(gen1, gen, tokens, device, N):
+    """Prefill time (a generator of one token) and decode-step time (the
+    rest of an N-token generator's time over its N - 1 steps)."""
+    t0 = time.perf_counter()
+    gen1(tokens)
+    sync(device)
+    t1 = time.perf_counter()
+    out = gen(tokens)
+    sync(device)
+    t2 = time.perf_counter()
+    return out, t1 - t0, (t2 - t1 - (t1 - t0)) / (N - 1)
+
+
+def run_mesh_serve(models, parallel, ops, card, device="cuda",
+                   name="tpu-7b", n_layers=None, B=8, P=512, N=16,
+                   rounds=3):
+    """Phase 12 (b) and (c): tpu-7b through make_infer_fns and
+    make_generate_fn on a world-1 mesh against the no-mesh forward and
+    generator (greedy; the same weights from seed 0); then the dispatch
+    under the mesh at the prefill's attention shapes. Returns the flash
+    launches of the mesh's serving path."""
+    cfg = models.MODEL_REGISTRY[name]
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    mesh = mesh_of(parallel, device, fsdp=-1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(1))
+    plain = models.TransformerLM(cfg, device="meta")
+    _, gen1 = models.make_generate_fn(plain, batch=B, prompt_len=P,
+                                      max_new_tokens=1, device=device)
+    init_fn, gen = models.make_generate_fn(plain, batch=B, prompt_len=P,
+                                           max_new_tokens=N, device=device)
+    init_fn(torch.Generator(device=device).manual_seed(0))
+    sharded = models.TransformerLM(cfg, device="meta")
+    minit, infer, _ = parallel.make_infer_fns(sharded, mesh,
+                                              batch_shape=(B, P),
+                                              device=device)
+    minit(torch.Generator(device=device).manual_seed(0))
+    _, mgen1 = models.make_generate_fn(sharded, mesh, batch=B, prompt_len=P,
+                                       max_new_tokens=1, device=device)
+    _, mgen = models.make_generate_fn(sharded, mesh, batch=B, prompt_len=P,
+                                      max_new_tokens=N, device=device)
+
+    zero_counts(ops)                   # main path: the mesh's serving
+    got = infer(tokens).float()
+    mesh_counts = read_counts(ops)
+    with torch.inference_mode():
+        want = plain(tokens, return_hidden=True)[:, -1]
+        want = (want @ plain.unembed_weight()).float()
+    rel = rel_l2(got, want)
+    print(f"mesh {mesh.mesh_dim_names}: make_infer_fns {name} last-position "
+          f"logits vs the no-mesh forward: relative L2 {rel:.3e} (tol "
+          f"{LOGITS_REL_TOL:g}), bitwise equal {torch.equal(got, want)}, "
+          f"flash_fwd launches {mesh_counts['flash_fwd']}", flush=True)
+    if not torch.isfinite(got).all() or rel > LOGITS_REL_TOL:
+        fail("mesh logits disagree with the no-mesh forward")
+    times = {"no mesh": [], "mesh": []}
+    outs = {}
+    for r in range(rounds):
+        for label in (("no mesh", "mesh") if r % 2 == 0
+                      else ("mesh", "no mesh")):
+            before = read_counts(ops)
+            outs[label], pre, dec = generate_times(
+                *((mgen1, mgen) if label == "mesh" else (gen1, gen)),
+                tokens, device, N)
+            times[label].append((pre, dec))
+            if label == "mesh":
+                mesh_counts = {k: mesh_counts[k] + c - before[k]
+                               for k, c in read_counts(ops).items()}
+            else:
+                # the no-mesh generator is the comparison, not the path
+                for k, fn in wrappers(ops).items():
+                    fn.launches = before[k]
+    a, b = outs["no mesh"], outs["mesh"]
+    diffs = [first_diff(x.tolist(), y.tolist()) for x, y in zip(a, b)]
+    gaps = [near_tie(plain, models, tokens[i].cpu().numpy(),
+                     a[i].cpu().numpy(), d, device)
+            for i, d in enumerate(diffs) if d is not None]
+    print(f"mesh generator {B}x{P} + {N} greedy tokens vs the no-mesh "
+          f"generator: {diffs.count(None)}/{B} streams equal, first "
+          f"difference per stream {diffs}, top-2 gap there (share of the "
+          f"top logit) {[f'{g:.4f}' for g in gaps]}", flush=True)
+    if any(g > SPEC_NEAR_TIE for g in gaps):
+        fail("the mesh generator left the no-mesh one away from a tie")
+    for label, ts in times.items():
+        pre = median_spread([t[0] for t in ts])
+        dec = median_spread([t[1] for t in ts])
+        print(f"{label}: prefill {B}x{P} {pre[0] * 1e3:.1f} ms "
+              f"[{pre[1] * 1e3:.1f}, {pre[2] * 1e3:.1f}], decode step {dec[0] * 1e3:.2f} ms "
+              f"[{dec[1] * 1e3:.2f}, {dec[2] * 1e3:.2f}] (median [min, max] "
+              f"of {rounds}, taken in turns) [{card}]", flush=True)
+    want_fwd = (1 + rounds * 2) * cfg.n_layers if device == "cuda" else 0
+    if mesh_counts["flash_fwd"] != want_fwd:
+        fail(f"the mesh's serving launched flash_fwd "
+             f"{mesh_counts['flash_fwd']} times, want {want_fwd} (one per "
+             f"layer per prefill)")
+    del plain, sharded, gen, gen1, mgen, mgen1
+    release(device)
+    run_mesh_dispatch(ops, mesh, cfg, device, B, P)
+    return mesh_counts
+
+
+def run_mesh_dispatch(ops, mesh, cfg, device, B, L):
+    """Phase 12 (c): attention through the dispatch under the world-1
+    mesh, q/k/v DTensors at the prefill's shapes: sharded_local runs the
+    flash kernel on the local shards (a TMA-readable layout, checked) and
+    must equal flash_attention on the whole tensors; ring on seq=1 must
+    equal plain attention within phase 3's bound. Comparison launches:
+    not counted."""
+    from torch.distributed.tensor import distribute_tensor
+    from ray_tpu_torch.ops import dispatch
+    from ray_tpu_torch.parallel import use_mesh
+    from ray_tpu_torch.parallel.sharding import spec_to_placements
+    g = torch.Generator(device=device).manual_seed(5)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = (torch.randn(B, L, h, D, device=device, generator=g,
+                           dtype=cfg.dtype) for h in (H, Hkv, Hkv))
+    place = spec_to_placements((("data", "fsdp"), None, "tensor", None),
+                               mesh)
+    dq, dk, dv = (distribute_tensor(x, mesh, place, src_data_rank=None)
+                  for x in (q, k, v))
+    why = [ops.tma_layout_error(x.to_local().stride(),
+                                x.to_local().data_ptr(),
+                                x.to_local().element_size())
+           for x in (dq, dk, dv)]
+    saved = read_counts(ops)
+    with use_mesh(mesh), torch.no_grad():
+        before = ops.flash_attention_fwd.launches
+        local = dispatch.attention(dq, dk, dv, impl="sharded_local")
+        launched = ops.flash_attention_fwd.launches - before
+        ring = dispatch.attention(dq, dk, dv, impl="ring")
+        whole = ops.flash_attention(q, k, v)
+        plain = ops.mha_reference(q, k, v)
+    for name, fn in wrappers(ops).items():
+        fn.launches = saved[name]
+    local, ring = local.full_tensor(), ring.full_tensor()
+    rel = rel_l2(ring, plain)
+    print(f"dispatch under mesh {mesh.mesh_dim_names} at {B}x{L}x{H}/{Hkv}"
+          f"x{D} {str(cfg.dtype).split('.')[-1]}: local shards TMA-readable "
+          f"{[w is None for w in why]}; sharded_local launched flash_fwd "
+          f"{launched} time(s), equal to flash_attention "
+          f"{torch.equal(local, whole)}; ring (seq=1) vs plain attention "
+          f"relative L2 {rel:.3e} (tol {LOGITS_REL_TOL:g})", flush=True)
+    if device == "cuda" and (launched != 1 or any(why)):
+        fail(f"sharded_local: {launched} launches, TMA {why}")
+    if not torch.equal(local, whole) or rel > LOGITS_REL_TOL:
+        fail("attention under the mesh disagrees with the whole-tensor "
+             "attention")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
@@ -1618,6 +1920,13 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}",
           flush=True)
+
+    try:
+        import ml_dtypes
+        bf16_spans = f"ml_dtypes {ml_dtypes.__version__}: 2-byte bf16 spans"
+    except ImportError:
+        bf16_spans = "ml_dtypes not installed: bf16 spans go out as fp32"
+    print(f"kv spans: {bf16_spans}", flush=True)
 
     t0 = time.perf_counter()
     built = _build.build(*KERNELS)
@@ -1654,10 +1963,18 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     run_moe_holds(models, parallel, inference, ops, card)
+    mesh_counts = [
+        run_mesh_train(models, parallel, ops, card),
+        run_mesh_serve(models, parallel, ops, card),
+        run_mesh_train(models, parallel, ops, card, name="mixtral-8x7b",
+                       n_layers=4, steps=2, together=False, fsdp=1,
+                       expert=-1)]
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)
-                                     + moe_train_counts[name])
+                                     + moe_train_counts[name]
+                                     + sum(c[name] for c in mesh_counts))
+        records[name]["mesh_launches"] = sum(c[name] for c in mesh_counts)
     records["flash_fwd"]["launches"] += (gen_launches + eng_launches
                                          + moe_serve_launches)
     for name in KERNELS:

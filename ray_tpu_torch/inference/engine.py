@@ -26,7 +26,9 @@ Counterpart of ``ray_tpu/inference/engine.py``, on one device:
   cached blocks between engines as host spans.
 
 Sampling is shared with ``make_generate_fn`` (models/sampling.py). A
-device mesh, step profiling and flight-recorder events are not ported yet.
+sharded engine (``mesh``), step profiling and flight-recorder events are
+not ported yet: they wait for the runtime core (ROADMAP.md, Queue A item
+A3b).
 """
 
 from __future__ import annotations
@@ -49,6 +51,16 @@ from ray_tpu_torch.inference.scheduler import (FINISH_LENGTH, PrefillChunk,
 from ray_tpu_torch.models.sampling import sample_logits_dynamic
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, Queue A item {})"
+
+
+def _numpy_bfloat16():
+    """numpy's bf16 dtype from ``ml_dtypes`` (which JAX installs), or None
+    where it is not installed: numpy itself has none."""
+    try:
+        import ml_dtypes
+    except ImportError:
+        return None
+    return np.dtype(ml_dtypes.bfloat16)
 
 
 @dataclasses.dataclass
@@ -96,8 +108,12 @@ class InferenceEngine:
     def __init__(self, model, config: Optional[EngineConfig] = None,
                  device="cuda", seed: int = 0, mesh=None, spec=None):
         if mesh is not None:
+            # under PyTorch each card has its own process, so a sharded
+            # engine is a gang of ranks that admit the same requests and
+            # sample the same tokens in lockstep (the JAX package's
+            # serve/sharded.py), which sits on the runtime core
             raise NotImplementedError(
-                "a sharded engine (mesh) " + _NOT_PORTED.format("A3"))
+                "a sharded engine (mesh) " + _NOT_PORTED.format("A3b"))
         cfg = self.config = config or EngineConfig()
         self.device = resolve_device(device)
         self.model = model
@@ -534,8 +550,10 @@ class InferenceEngine:
         blocks covering ``tokens``' chunk-aligned prefix out of the block
         pool as host arrays. Returns ``(covered_tokens, spans)`` where
         ``spans`` is ``[(k, v), ...]`` of span shape ``[n_layers, 1,
-        prefill_chunk, Hkv, D]`` (numpy in the pool's dtype, or fp32 for a
-        bf16 pool, which numpy lacks: exact), or under int8 ``[(qk, qv, ks,
+        prefill_chunk, Hkv, D]`` (numpy in the pool's dtype: for a bf16
+        pool ``ml_dtypes.bfloat16``, 2 bytes per element as the JAX
+        engine ships them, or fp32 where ``ml_dtypes`` does not import,
+        which is exact), or under int8 ``[(qk, qv, ks,
         vs), ...]`` (int8 values, fp32 scales without the D axis). Defaults
         to the admission cap (one token short of the prompt) so the
         importing engine's match covers exactly what its scheduler would
@@ -548,7 +566,13 @@ class InferenceEngine:
 
         def host(x):
             x = x[:, None].cpu()
-            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+            if x.dtype != torch.bfloat16:
+                return x.numpy()
+            bf16 = _numpy_bfloat16()
+            if bf16 is None:
+                return x.float().numpy()
+            # the bits as they are: a 2-byte array, as the JAX engine's
+            return x.view(torch.int16).numpy().view(bf16)
         with self._lock:
             nodes = self.prefix_cache.walk(tokens, cap)
             spans = []
@@ -585,10 +609,15 @@ class InferenceEngine:
             return 0
 
         def dev(x, dtype):
-            if x.dtype.kind == "V" or str(x.dtype) == "bfloat16":
-                x = np.asarray(x, np.float32)
-            return torch.from_numpy(np.array(x)).to(
-                self.device).to(dtype)[:, 0]
+            if str(x.dtype) == "bfloat16":
+                # a 2-byte bf16 array (ml_dtypes): its bits as they are
+                t = torch.from_numpy(np.array(x).view(np.int16)).view(
+                    torch.bfloat16)
+            else:
+                if x.dtype.kind == "V":
+                    x = np.asarray(x, np.float32)
+                t = torch.from_numpy(np.array(x))
+            return t.to(self.device).to(dtype)[:, 0]
         with self._lock:
             created = self.prefix_cache.insert(
                 [int(t) for t in tokens[:n * C]])

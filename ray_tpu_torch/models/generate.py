@@ -1,12 +1,20 @@
-"""Autoregressive generation on one device: prefill + KV-cache decode.
+"""Autoregressive generation: prefill + KV-cache decode, on one device or
+over a device mesh.
 
-Counterpart of ``ray_tpu/models/generate.py`` (``make_generate_fn``),
-single-device. The prompt goes through one one-shot prefill forward (the
-flash-attention kernel's path), which seeds every layer's cache; then a
-Python loop runs single-token decode steps against the cache. Weights
-live on the model (an ``nn.Module``), not in a separate params tree.
-The mesh/sharding arguments are not ported yet (ROADMAP.md, Queue A item
-A3).
+Counterpart of ``ray_tpu/models/generate.py`` (``make_generate_fn``). The
+prompt goes through one one-shot prefill forward (the flash-attention
+kernel's path), which seeds every layer's cache; then a Python loop runs
+single-token decode steps against the cache. Weights live on the model
+(an ``nn.Module``), not in a separate params tree.
+
+With a ``mesh`` the parameters are DTensors placed per
+``parallel.train_step.state_shardings``, and the KV cache is sharded as
+``(None, "batch", None, "kv_heads", None)`` says (a dim that does not
+divide replicated): batch over the data axes, KV heads over ``tensor``.
+Every rank runs the same program on the same inputs: the last position's
+logits are gathered whole on every rank before a token is picked, and a
+sampling generator seeded alike on every rank picks the same tokens, so
+the tokens come out the same on every rank.
 """
 
 from __future__ import annotations
@@ -21,40 +29,64 @@ from ray_tpu_torch.models.sampling import sample_logits
 from ray_tpu_torch.models.transformer import TransformerLM, init_cache
 
 
-def make_generate_fn(model: TransformerLM, batch: int = 8,
-                     prompt_len: int = 128, max_new_tokens: int = 128,
-                     temperature: float = 0.0, device="cuda"
-                     ) -> Tuple[Callable, Callable]:
+def make_generate_fn(model: TransformerLM, mesh=None, rules=None,
+                     batch: int = 8, prompt_len: int = 128,
+                     max_new_tokens: int = 128, temperature: float = 0.0,
+                     device="cuda") -> Tuple[Callable, Callable]:
     """Returns (init_fn(generator) -> model, generate_fn(tokens,
     generator=None) -> [batch, max_new_tokens] token ids).
 
     ``init_fn`` fills the model with seeded random weights
-    (``convert.init_params``) on ``device``; a model loaded another way
-    needs no ``init_fn``. temperature 0.0 is greedy; > 0 samples.
-    max_len = prompt_len + max_new_tokens bounds the KV cache."""
+    (``convert.init_params``) on ``device``, distributed over ``mesh`` when
+    there is one; a model loaded another way needs no ``init_fn``.
+    temperature 0.0 is greedy; > 0 samples. max_len = prompt_len +
+    max_new_tokens bounds the KV cache."""
+    # imported here: the parallel package imports this module's package
+    from ray_tpu_torch.parallel import train_step as ts
     dev = resolve_device(device)
     cfg = model.cfg
     max_len = prompt_len + max_new_tokens
+    shardings = (ts.state_shardings(model, mesh, rules) if mesh is not None
+                 else None)
+    rules = rules or ts.sharding_lib.DEFAULT_RULES
 
     def init_fn(generator: torch.Generator) -> TransformerLM:
-        model.load_state_dict(init_params(cfg, generator, dev), assign=True)
+        ts._load(model, init_params(cfg, generator, dev), mesh, shardings)
         return model
 
-    @torch.inference_mode()
+    def new_cache():
+        cache = init_cache(cfg, batch, max_len, device=dev)
+        if mesh is None:
+            return cache
+        place = ts._batch_placements(
+            mesh, rules, tuple(cache["k"].shape),
+            (None, "batch", None, "kv_heads", None))
+        return {"k": ts._distribute(cache["k"], mesh, place),
+                "v": ts._distribute(cache["v"], mesh, place),
+                "idx": cache["idx"]}
+
     def generate_fn(tokens, generator: Optional[torch.Generator] = None):
         tokens = torch.as_tensor(tokens, device=dev)
         if tuple(tokens.shape) != (batch, prompt_len):
             raise ValueError(f"tokens {tuple(tokens.shape)}; this generator "
                              f"takes ({batch}, {prompt_len})")
-        cache = init_cache(cfg, batch, max_len, device=dev)
-        # prefill: one full-prompt forward seeds every layer's cache
-        logits, cache = model(tokens, cache=cache)
-        tok = sample_logits(logits[:, -1, :], generator, temperature)
-        out = [tok]
-        for _ in range(max_new_tokens - 1):
-            logits, cache = model(tok[:, None], cache=cache)
-            tok = sample_logits(logits[:, -1, :], generator, temperature)
-            out.append(tok)
+        # under a mesh no_grad, not inference_mode: see sharding.constrain
+        no_grad = torch.inference_mode if mesh is None else torch.no_grad
+        with no_grad(), ts._on_mesh(mesh):
+            if mesh is not None:
+                tokens = ts._distribute(tokens, mesh, ts._batch_placements(
+                    mesh, rules, (batch, prompt_len), ("batch", None)))
+            cache = new_cache()
+            # prefill: one full-prompt forward seeds every layer's cache
+            logits, cache = model(tokens, cache=cache)
+            tok = sample_logits(ts._whole(logits[:, -1, :]), generator,
+                                temperature)
+            out = [tok]
+            for _ in range(max_new_tokens - 1):
+                logits, cache = model(tok[:, None], cache=cache)
+                tok = sample_logits(ts._whole(logits[:, -1, :]), generator,
+                                    temperature)
+                out.append(tok)
         return torch.stack(out, dim=1)
 
     return init_fn, generate_fn

@@ -20,10 +20,15 @@ function step for step:
 - the Switch load-balancing loss E * sum_e frac_tokens_e * mean_prob_e,
   over the picks before any drop, averaged over the batch.
 
-The routing is integer bookkeeping and is computed exactly. The JAX
-module pins the shuffle's output to the mesh's ``expert`` axis; on one
-device that is the identity, and the mesh is not ported (ROADMAP.md,
-Queue A item A3).
+The routing is integer bookkeeping and is computed exactly. Under a mesh
+(``parallel.mesh``) the stacked experts are DTensors sharded over the
+``expert`` axis, and the shuffle's output and the experts' output are
+pinned to ``("experts", None, None, "embed")`` as the JAX module pins
+them (``parallel.sharding.constrain``): between the token layout and the
+experts' layout DTensor redistributes with an all-to-all. The experts'
+output then goes back to the tokens' layout before the combine, where
+XLA folds that into the combine itself. Without a mesh ``constrain`` is
+the identity.
 """
 
 from __future__ import annotations
@@ -33,6 +38,13 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def _one_hot(x, n: int):
+    """``F.one_hot`` as a comparison, which DTensor propagates also under
+    inference mode (where ``one_hot`` decomposes into an assert that it
+    has no sharding rule for)."""
+    return (x[..., None] == torch.arange(n, device=x.device)).long()
 
 
 def capacity(cfg, L: int) -> int:
@@ -70,32 +82,44 @@ class MoEMLP(nn.Module):
         gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
         gates, idx = gates[..., :K], idx[..., :K]
         gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
-        sel = F.one_hot(idx, self.cfg.n_experts)              # [B,L,K,E]
+        sel = _one_hot(idx, self.cfg.n_experts)               # [B,L,K,E]
         flat = sel.transpose(1, 2).reshape(B, K * L, -1)      # slot-major
         before = flat.cumsum(1) - flat
         pos = (before.reshape(B, K, L, -1).transpose(1, 2) * sel).sum(-1)
         return probs, gates, idx, pos
 
     def forward(self, x):
+        # imported here: the parallel package imports the model
+        from ray_tpu_torch.parallel.sharding import constrain
         cfg = self.cfg
         B, L, _ = x.shape
         E, K, dt = cfg.n_experts, cfg.expert_top_k, cfg.dtype
         C = capacity(cfg, L)
         probs, gates, idx, pos = self.route(x)
         keep = pos < C
-        sel = F.one_hot(idx, E).to(probs.dtype)               # [B,L,K,E]
+        sel = _one_hot(idx, E).to(probs.dtype)                # [B,L,K,E]
         # a dropped pick's slot is clamped into range; its gate is zeroed,
         # as jax.nn.one_hot's zero row for an index >= C leaves it out
-        slot = F.one_hot(pos.clamp(max=C - 1), C).to(probs.dtype)
+        slot = _one_hot(pos.clamp(max=C - 1), C).to(probs.dtype)
         combine = torch.einsum("blke,blkc->blec",
                                (gates * keep)[..., None] * sel, slot)
         dispatch = (combine > 0).to(x.dtype)
 
+        # the token->expert shuffle: under an expert-sharded mesh the
+        # redistribute to the experts' layout is an all-to-all (a no-op
+        # without a mesh)
         expert_in = torch.einsum("blec,bld->ebcd", dispatch, x)
+        expert_in = constrain(expert_in, ("experts", None, None, "embed"))
         h = torch.einsum("ebcd,edf->ebcf", expert_in, self.gate.to(dt))
         u = torch.einsum("ebcd,edf->ebcf", expert_in, self.up.to(dt))
         expert_out = torch.einsum("ebcf,efd->ebcd", F.silu(h) * u,
                                   self.down.to(dt))
+        expert_out = constrain(expert_out, ("experts", None, None, "embed"))
+        # back to the tokens' layout for the combine (every expert's
+        # output, the batch over the data axes): DTensor (torch 2.11)
+        # cannot flatten an expert-sharded dim into the combine einsum's
+        # contraction
+        expert_out = constrain(expert_out, (None, "batch", None, None))
         out = torch.einsum("blec,ebcd->bld", combine.to(x.dtype), expert_out)
 
         frac_tokens = sel.sum((1, 2)) / (L * K)               # [B,E]

@@ -30,6 +30,14 @@ The KV cache is a dict {"k", "v": [n_layers, B, M, Hkv, D], "idx"}; a
 forward with a cache writes its keys and values INTO those tensors in
 place (the JAX model returns new arrays) and returns a new dict with the
 advanced ``idx``.
+
+Under a device mesh (``parallel.mesh``) the parameters, the activations
+and the cache are DTensors and the same code runs: the activations are
+pinned to ``("batch", "seq", None)`` where the JAX model pins them
+(``parallel.sharding.constrain``, a no-op without a mesh), attention runs
+as a ``local_map`` island (``ops/dispatch.py``), a sharded cache is
+written in its local shards and attended in an island over its own
+placements, and the embedding table is gathered whole for the lookup.
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -166,6 +176,20 @@ def _cached_attention(q, k_cache, v_cache, q_pos0):
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def _cached_attention_sharded(q, k_cache, v_cache, q_pos0):
+    """``_cached_attention`` on DTensors, as a ``local_map`` island over the
+    cache's own placements (batch over the data axes, KV heads over
+    ``tensor``): q's heads shard as the cache's KV heads do, whole GQA
+    groups per shard, so each rank attends its shard of the cache
+    locally. DTensor would also propagate the einsums, anew at every
+    call."""
+    place = list(k_cache.placements)
+    fn = local_map(_cached_attention, out_placements=place,
+                   in_placements=(place, place, place, None),
+                   device_mesh=k_cache.device_mesh, redistribute_inputs=True)
+    return fn(q, k_cache, v_cache, q_pos0)
+
+
 def _positions(start, L: int, device):
     """[1, L] (scalar start) or [B, L] (per-row [B] starts) absolute
     positions start + 0..L-1. A Python int start costs no host-to-device
@@ -182,6 +206,15 @@ def _cache_write(cache, new, idx):
     As in JAX's dynamic_update_slice, a negative start counts from the end
     and starts are then clamped to [0, M-L], so a full or free slot writes
     at M-L harmlessly. Returns cache."""
+    if isinstance(cache, DTensor):
+        # write into the local shards: the slice moves every step, and
+        # DTensor would propagate each new slice's sharding anew
+        if isinstance(idx, torch.Tensor) and idx.dim() > 0:
+            raise ValueError("a sharded cache takes one write offset for "
+                             "every row")
+        new = new.redistribute(cache.device_mesh, cache.placements)
+        _cache_write(cache.to_local(), new.to_local(), idx)
+        return cache
     L, M = new.shape[1], cache.shape[1]
     new = new.to(cache.dtype)
     if isinstance(idx, torch.Tensor) and idx.dim() > 0:
@@ -235,6 +268,8 @@ class Attention(nn.Module):
         if L > 1 and not chunked:
             out = attention_dispatch(q, k, v, causal=True,
                                      impl=cfg.attention_impl)
+        elif isinstance(k_cache, DTensor):
+            out = _cached_attention_sharded(q, k_cache, v_cache, idx)
         else:
             out = _cached_attention(q, k_cache, v_cache, idx)
         return out.reshape(B, L, H * D) @ self.o.to(dt), (k_cache, v_cache)
@@ -337,7 +372,16 @@ class TransformerLM(nn.Module):
         if positions is None:
             start = 0 if cache is None else cache["idx"]
             positions = _positions(start, L, tokens.device).expand(B, L)
-        x = F.embedding(tokens, self.embed).to(self.cfg.dtype)
+        # imported here: the parallel package imports this module
+        from ray_tpu_torch.parallel.sharding import constrain
+        # a vocab-sharded table is gathered whole for the lookup: DTensor's
+        # sharded lookup leaves a masked partial sum whose gradient it
+        # cannot carry back (a no-op without a mesh)
+        embed = constrain(self.embed, (None, "embed_lookup"))
+        x = F.embedding(tokens, embed).to(self.cfg.dtype)
+        # the canonical activation layout from the first op on (a no-op
+        # without a mesh), as the JAX model pins it
+        x = constrain(x, ("batch", "seq", None))
         if cache is not None:
             return self._decode(x, positions, cache, return_hidden,
                                 chunked_prefill)
@@ -346,14 +390,16 @@ class TransformerLM(nn.Module):
             else None
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.layers:
+            x = constrain(x, ("batch", "seq", None))
             if context_fn is not None and torch.is_grad_enabled():
                 x, aux = checkpoint(block, x, positions, use_reentrant=False,
                                     context_fn=context_fn)
             else:
                 x, aux = block(x, positions)
+            x = constrain(x, ("batch", "seq", None))
             if aux is not None:
                 aux_total = aux_total + aux
-        x = self.final_norm(x)
+        x = constrain(self.final_norm(x), ("batch", "seq", None))
         out = x if return_hidden else self._logits(x)
         return (out, aux_total) if return_aux else out
 

@@ -17,6 +17,13 @@ optimizer works on param groups that each hold one JAX leaf
 (``models.jax_leaf_groups``), every tensor viewed in its JAX shape (a
 ``stacked`` group's tensors are the slices of its leading axis); a group
 without a ``shape`` takes each tensor as a leaf of its own.
+
+On a device mesh the parameters are DTensors and both optimizers run as
+they are: AdamW is elementwise, and Adafactor's stacked leaf, its factored
+means over dims the mesh shards and its block RMS are DTensor ops, whose
+pending partial sums DTensor reduces before they are used
+(``tests/test_torch_mesh_adafactor.py`` holds it to the single-process
+optimizer).
 """
 
 from __future__ import annotations

@@ -49,8 +49,9 @@ STEPS = 3    # steps timed
 
 def run(title, cfg, optimizer, traced=True):
     model = TransformerLM(cfg, device="meta")
-    init_fn, step_fn = make_train_fns(model, optimizer,
-                                      batch_shape=(B, L + 1), loss_chunk=256)
+    init_fn, step_fn, _ = make_train_fns(model, optimizer,
+                                         batch_shape=(B, L + 1),
+                                         loss_chunk=256)
     state = init_fn(torch.Generator(device="cuda").manual_seed(0))
     tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device="cuda",
                            generator=torch.Generator(device="cuda")

@@ -81,7 +81,8 @@ def test_dispatch():
     assert torch.equal(dispatch(q, k, v, impl="reference"),
                        ops.mha_reference(q, k, v))
     for impl in ("ring", "sharded_local"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # as in the JAX dispatch: the sharded impls need use_mesh(...)
+        with pytest.raises(ValueError, match="needs a mesh"):
             dispatch(q, k, v, impl=impl)
     with pytest.raises(ValueError):
         dispatch(q, k, v, impl="nope")

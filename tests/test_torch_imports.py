@@ -24,3 +24,41 @@ def test_port_imports_no_jax_and_no_ray_tpu():
            for name in _imports(f)
            if name.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+# what the mesh tests' gloo ranks import: they must start without JAX
+WORLD_FILES = ("tests/torch_world.py", "tests/torch_mesh_cases.py")
+MESH_MODULES = ("ray_tpu_torch.parallel.mesh",
+                "ray_tpu_torch.parallel.sharding",
+                "ray_tpu_torch.ops.ring_attention",
+                "ray_tpu_torch.ops.dispatch", "ray_tpu_torch.models.axes")
+
+
+def test_mesh_worlds_import_no_jax():
+    bad = [f"{f}: {name}" for f in WORLD_FILES
+           for name in _imports(ROOT / f)
+           if name.split(".")[0] in FORBIDDEN[:4]
+           or name.startswith("ray_tpu.")]
+    assert not bad, bad
+
+
+def test_every_module_imports_without_jax():
+    """Import the whole package (the mesh modules by name) and the world
+    helpers in a fresh interpreter: none of them pulls in JAX or the JAX
+    package."""
+    import subprocess
+    import sys
+    mods = sorted(".".join(p.relative_to(ROOT).with_suffix("").parts)
+                  for p in (ROOT / "ray_tpu_torch").rglob("*.py")
+                  if p.name != "__init__.py")
+    assert set(MESH_MODULES) <= set(mods)
+    mods += ["tests.torch_world", "tests.torch_mesh_cases"]
+    code = (f"import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            f"    importlib.import_module(m)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            f"print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -82,3 +82,52 @@ def test_exported_spans_import_across_packages(tiny, kv_quant, direction):
     assert _drain(importer, h) == want
     assert h.prefix_matched == 16
     assert importer.stats()["kv_imports"] == 1
+
+
+@pytest.fixture(scope="module")
+def tiny_bf16():
+    """The tiny config in bf16 on both sides (fp32 weights, bf16 compute
+    and a bf16 slot and block pool), the same weights."""
+    shape = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4,
+                 n_kv_heads=2, d_ff=128, max_seq_len=128)
+    jmodel = JaxLM(JaxConfig(**shape, dtype=jnp.bfloat16,
+                             param_dtype=jnp.float32, remat=False))
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                  jnp.zeros((1, 8), jnp.int32))["params"]
+    tmodel = TransformerLM(TransformerConfig(**shape, dtype=torch.bfloat16),
+                           device="cpu")
+    tmodel.load_state_dict(params_from_jax(
+        jax.tree.map(np.asarray, meta.unbox(params))))
+    return jmodel, params, tmodel
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_bf16_spans_cross_as_two_byte_arrays(tiny_bf16, direction):
+    """A bf16 pool's spans go out as ``ml_dtypes.bfloat16`` arrays, 2 bytes
+    per element, from either package (the port's by a bit view of its
+    pool, not through fp32), and the other package's engine imports them
+    and serves the prompt from them with the exporter's greedy tokens;
+    the imported blocks hold the exporter's bits."""
+    kw = dict(prefix_cache_slots=2)
+    make = {"jax": _jax_engine, "port": _port_engine}
+    src, dst = direction.split("_to_")
+    exporter, importer = make[src](tiny_bf16, **kw), make[dst](tiny_bf16,
+                                                               **kw)
+    prompt = np.random.RandomState(12).randint(0, 128, 19)
+    want = _drain(exporter, exporter.submit(prompt, max_new_tokens=8))
+    covered, spans = exporter.export_kv_blocks(prompt)
+    assert covered == 16 and len(spans) == 4
+    for k, v in spans:
+        for x in (k, v):
+            assert str(x.dtype) == "bfloat16" and x.dtype.itemsize == 2
+            assert x.shape == (2, 1, 4, 2, 16)
+    assert importer.import_kv_blocks(prompt, spans) == 16
+    h = importer.submit(prompt, max_new_tokens=8)
+    assert _drain(importer, h) == want
+    assert h.prefix_matched == 16
+    # the port's block pool holds the spans' bits exactly
+    port = importer if dst == "port" else exporter
+    back = port.export_kv_blocks(prompt)[1]
+    for (k0, v0), (k1, v1) in zip(spans, back):
+        np.testing.assert_array_equal(k0.view(np.int16), k1.view(np.int16))
+        np.testing.assert_array_equal(v0.view(np.int16), v1.view(np.int16))

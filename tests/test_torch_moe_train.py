@@ -62,8 +62,8 @@ def test_train_steps_match_jax(recipe):
                             meta.unbox(params))
 
     model = TransformerLM(tcfg, device="meta")
-    init_fn, step_fn = make_train_fns(model, opt, batch_shape=(B, L + 1),
-                                      loss_chunk=16, device="cpu")
+    init_fn, step_fn, _ = make_train_fns(model, opt, batch_shape=(B, L + 1),
+                                         loss_chunk=16, device="cpu")
     state = init_fn(torch.Generator().manual_seed(0))
     state.model.load_state_dict(params_from_jax(tree(jstate.params)))
     assert model.layers[0].moe.router.dtype == torch.float32

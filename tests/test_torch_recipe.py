@@ -66,9 +66,9 @@ def test_recipe_trajectory_matches_jax(dtype):
                         meta.unbox(jstate.params))
 
     model = TransformerLM(tcfg, device="meta")
-    init_fn, step_fn = make_train_fns(model, adafactor(1e-2),
-                                      batch_shape=(B, L + 1), loss_chunk=16,
-                                      device="cpu")
+    init_fn, step_fn, _ = make_train_fns(model, adafactor(1e-2),
+                                         batch_shape=(B, L + 1), loss_chunk=16,
+                                         device="cpu")
     state = init_fn(torch.Generator().manual_seed(0))
     state.model.load_state_dict(params_from_jax(tree))
     dtypes = {n: p.dtype for n, p in model.named_parameters()}

@@ -164,9 +164,9 @@ def test_flash_calls_per_step_match_jax_pallas_calls(monkeypatch, policy):
         monkeypatch.setattr(ops, name, counted)
     cfg = _cfg(remat=policy is not None, remat_policy=policy or "dots")
     model = TransformerLM(cfg, device="meta")
-    init_fn, step_fn = make_train_fns(model, adafactor(1e-3),
-                                      batch_shape=(B, L + 1), loss_chunk=16,
-                                      device="cpu")
+    init_fn, step_fn, _ = make_train_fns(model, adafactor(1e-3),
+                                         batch_shape=(B, L + 1), loss_chunk=16,
+                                         device="cpu")
     state = init_fn(torch.Generator().manual_seed(0))
     step_fn(state, _tokens())
     per_layer = _jax_pallas_calls(policy)

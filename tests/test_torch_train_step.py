@@ -110,9 +110,9 @@ def test_three_step_trajectory_matches_jax(jax_train_fns):
     sd = params_from_jax(params)
 
     model = TransformerLM(tcfg, device="meta")
-    init_fn, step_fn = make_train_fns(model, adamw(1e-3),
-                                      batch_shape=(B, L + 1),
-                                      loss_chunk=16, device="cpu")
+    init_fn, step_fn, _ = make_train_fns(model, adamw(1e-3),
+                                         batch_shape=(B, L + 1),
+                                         loss_chunk=16, device="cpu")
     state = init_fn(torch.Generator().manual_seed(0))
     state.model.load_state_dict(sd)
 
@@ -212,8 +212,8 @@ def test_make_train_fns_defaults_to_the_card():
 
 def test_step_takes_only_its_batch_shape():
     model = TransformerLM(MODEL_REGISTRY["llama-debug"], device="meta")
-    init_fn, step_fn = make_train_fns(model, adamw(1e-3), batch_shape=(2, 9),
-                                      device="cpu")
+    init_fn, step_fn, _ = make_train_fns(model, adamw(1e-3), batch_shape=(2, 9),
+                                         device="cpu")
     state = init_fn(torch.Generator().manual_seed(0))
     assert all(p.dtype == torch.float32 for p in model.parameters())
     with pytest.raises(ValueError, match=r"\(2, 9\)"):
