@@ -111,17 +111,38 @@ Phases, each of which must pass (any failure exits non-zero):
     bound. (d) mixtral-8x7b at full width and 4 layers on a mesh whose
     one dim is ``expert`` (the stacked experts sharded over it): two
     recipe steps against two no-mesh steps, as (a), one model at a time.
-13. A JSON line of the kernels (with each one's TFLOP/s, its share of the
+13. Pipeline parallelism on tpu-3b's recipe blocks (bf16 weights,
+    adafactor(3e-4), seeded random weights; the embedding and the
+    unembedding outside the stages, the last stage's loss the chunked
+    cross-entropy against the unembedding). (a) The in-process MPMD
+    trainer (train/mpmd.py): 24 blocks in 2 stages of 12, 4 microbatches
+    of 1 x 1024 (phase 7's 4096 tokens per step), 1F1B, 3 steps: step 1's
+    loss against the same blocks run one after another (phase 5's loss
+    bound), each step launching B1 192 times (forward and the backward's
+    recompute) and B2 and B3 96 times, every stage program at one input
+    shape; the step time, per-stage compute, host time, measured and
+    analytic bubble, peak memory, the replay budget and the ratio to phase
+    7's step are printed. (b) The same with stage 1 killed in step 3's
+    first forward: the recovery (park, rebuild from the step-2 snapshot,
+    replay) must land (a)'s state digests bit for bit. (c) 4 virtual
+    stages of 6 blocks interleaved on 2 hosts against the plain 4-stage
+    pipeline, 2 steps: bit-identical digests. (d) pipeline_apply on a
+    mesh whose one dim is ``stage`` (world of one, S = 1), 2 blocks, 4
+    microbatches: the loss and every gradient bitwise equal to the blocks
+    run microbatch by microbatch.
+14. A JSON line of the kernels (with each one's TFLOP/s, its share of the
     bound, whether it runs on the tensor cores and its launches on the
-    mesh's paths), the card line again, and last the result.
+    mesh's and the pipeline's paths), the card line again, and last the
+    result.
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
 Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
-9, 10, 12) and read just after it; launches made to compare or time a
+9, 10, 12, each part of 13) and read just after it; launches made to compare or time a
 kernel (2, 5, the remat checks of 7 and 10, 11, phase 12's no-mesh
 generator and its dispatch check) do not count. Phase 12's no-mesh
-trainers are the steps its mesh steps are held to, and count.
+trainers are the steps its mesh steps are held to, and count; so do phase
+13 (d)'s blocks run one after another.
 """
 
 import dataclasses
@@ -1045,7 +1066,8 @@ def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
                n_layers=None, B=4, L=1024, steps=5, loss_chunk=256,
                lr=3e-4):
     """Phase 7: the recipe at full width and depth (phase 10: an expert
-    model cut to n_layers). Returns the kernel launch counts of the run.
+    model cut to n_layers). Returns the kernel launch counts of the run
+    and its step time (the median of steps 2 on).
     lr is the recipe's; Adafactor scales its steps by the weights' RMS, so
     at a rehearsal's llama-debug size 3e-4 moves the loss by only ~0.02 in
     5 steps, and the rehearsal passes 1e-2."""
@@ -1115,7 +1137,7 @@ def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
     if state.step != steps:
         fail(f"state.step is {state.step}, want {steps}")
     del state, model
-    return counts
+    return counts, steady
 
 
 def add_counts(total, ops):
@@ -1906,11 +1928,269 @@ def run_mesh_dispatch(ops, mesh, cfg, device, B, L):
              "attention")
 
 
+# ------------------------------------------------------------- phase 13
+
+def pipeline_data(cfg, weights, device, M, L, steps):
+    """data_fn(step) -> (M embedded inputs [1, L, d] in cfg.dtype, M
+    targets [1, L]), CPU tensors made on the device from a seed per step,
+    the embedding outside the stages as the JAX MPMD dry run keeps it."""
+    embed = weights["embed"]
+    data = {}
+    for step in range(1, steps + 1):
+        g = torch.Generator(device=device).manual_seed(100 + step)
+        toks = torch.randint(0, cfg.vocab_size, (M, 1, L + 1), device=device,
+                             generator=g)
+        data[step] = ([embed[toks[m, :, :-1]].to(cfg.dtype).cpu()
+                       for m in range(M)],
+                      [toks[m, :, 1:].cpu() for m in range(M)])
+    return lambda step: data[step]
+
+
+def pipeline_trainer(train, builders, M, **kw):
+    return train.MPMDPipelineTrainer(
+        builders, train.MPMDConfig(n_microbatches=M, **kw),
+        train.FailureConfig(max_failures=2, restart_policy="stage",
+                            restart_backoff_s=0.0))
+
+
+def check_compiled_once(what, tr):
+    counts = tr.compile_counts()
+    if any(c != {"fwd": 1, "bwd": 1, "apply": 1} for c in counts):
+        fail(f"{what}: stage programs ran at more than one input shape "
+             f"{counts}")
+
+
+def free_trainer(tr, device):
+    tr.shutdown()
+    release(device)
+
+
+def sequential_loss(models, parallel, cfg, weights, data_fn, loss_chunk,
+                    device):
+    """Step 1's loss without the pipeline: the same blocks, one model of
+    all of them, over the same microbatches (mean of the microbatch
+    losses, as the trainer reports it)."""
+    stage = models.BlockStage(cfg, cfg.n_layers, device="meta")
+    stage.load_state_dict(models.stage_state_dict(weights, 0, cfg.n_layers),
+                          assign=True)
+    unembed = weights["unembed"].to(cfg.dtype)
+    inputs, targets = data_fn(1)
+    with torch.no_grad():
+        losses = [parallel.chunked_cross_entropy(
+            stage(x.to(device)), unembed, t.to(device), chunk=loss_chunk)[0]
+            .cpu().numpy() for x, t in zip(inputs, targets)]
+    return float(np.mean(losses))
+
+
+def run_pipeline(models, parallel, train, ops, card, recipe_step_s,
+                 device="cuda", name="tpu-3b", n_layers=None, L=1024, M=4,
+                 steps=3, inter_steps=2, spmd_blocks=2, loss_chunk=256,
+                 lr=3e-4):
+    """Phase 13: the in-process MPMD pipeline trainer and the SPMD
+    pipeline_apply on cfg's recipe blocks. Returns the kernel launch
+    counts of (a)-(d) together."""
+    t_phase = time.perf_counter()
+    cfg = recipe_cfg(models, name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    weights = models.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device,
+        dtype=cfg.param_dtype)
+    data_fn = pipeline_data(cfg, weights, device, M, L, steps)
+    want_loss = sequential_loss(models, parallel, cfg, weights, data_fn,
+                                loss_chunk, device)
+    n = cfg.n_layers if device == "cuda" else 0
+    per_step = {"flash_fwd": 2 * n * M, "flash_bwd_dq": n * M,
+                "flash_bwd_dkv": n * M}
+    total = {}
+
+    print(f"pipeline {name}: weights and the sequential loss "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # (a) 2 stages of n_layers / 2 blocks, 1F1B, M microbatches
+    t_part = time.perf_counter()
+
+    def builders(n_virtual):
+        return train.block_stage_builders(
+            cfg, weights, n_virtual, parallel.adafactor(lr), loss_chunk)
+
+    tr = pipeline_trainer(train, builders(2), M)
+    step_counts = []
+
+    def counted(step):
+        step_counts.append(read_counts(ops))
+        return data_fn(step)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tr.start()
+    zero_counts(ops)                   # main path: the MPMD pipeline
+    out = tr.fit(counted, steps)
+    step_counts.append(read_counts(ops))
+    add_counts(total, ops)
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            if device == "cuda" else "n/a (CPU)")
+    launches = [{k: b[k] - a[k] for k in a}
+                for a, b in zip(step_counts, step_counts[1:])]
+    loss = out["history"][0]["loss"]
+    print(f"pipeline {name}: {cfg.n_layers} blocks in 2 stages, {M} "
+          f"microbatches of 1x{L}, 1f1b, adafactor({lr:g}), bf16 weights; "
+          f"step 1 loss {loss:.6f} vs the blocks one after another "
+          f"{want_loss:.6f} (|diff| {abs(loss - want_loss):.3e}, tol "
+          f"{TRAIN_LOSS_TOL:g}, bitwise {loss == want_loss}); launches per "
+          f"step {launches} (want {per_step})", flush=True)
+    if not np.isfinite(loss) or abs(loss - want_loss) > TRAIN_LOSS_TOL:
+        fail("the pipeline's first loss disagrees with the blocks run one "
+             "after another")
+    if any(c != per_step for c in launches):
+        fail(f"pipeline steps launched {launches}, want {per_step} each")
+    check_compiled_once("pipeline", tr)
+    for h in out["history"]:
+        compute = [h[f"stage{s}_compute_s"] for s in range(2)]
+        print(f"pipeline step {h['step']}: loss {h['loss']:.6f}, wall "
+              f"{h['wall_s'] * 1e3:.1f} ms, stage compute "
+              f"{[round(c * 1e3, 1) for c in compute]} ms, host (hops and "
+              f"dispatch) {(h['wall_s'] - sum(compute)) * 1e3:.1f} ms, "
+              f"measured bubble "
+              f"{[h[f'stage{s}_bubble_fraction'] for s in range(2)]}",
+              flush=True)
+    fwd_bwd = [(m["fwd_s"], m["bwd_s"]) for chunks in tr.last_stage_metrics
+               for m in chunks]
+    flops = [m["flops"] for chunks in tr.last_stage_metrics for m in chunks]
+    walls = [h["wall_s"] for h in out["history"]]
+    steady = float(np.median(walls[1:])) if steps > 1 else walls[0]
+    print(f"pipeline {name}: stage FLOPs per step {flops} (4x the "
+          f"forward's aten products), {sum(flops) / steady / 1e12:.1f} "
+          f"TFLOP/s over the step time", flush=True)
+    if not all(f > 0 for f in flops):
+        fail(f"a stage counted no FLOPs: {flops}")
+    print(f"pipeline {name}: step time {steady * 1e3:.1f} ms (median of "
+          f"steps 2-{steps}), {M * L / steady:.1f} tokens/s; last step "
+          f"per stage (fwd s, bwd+recompute s) {fwd_bwd}; analytic bubble "
+          f"{out['bubble_fraction_analytic']:.4f}; peak memory allocated "
+          f"{peak}; replay budget {out['replay_budget']}; phase 7's recipe "
+          f"step at the same {M * L} tokens {recipe_step_s * 1e3:.1f} ms, "
+          f"pipeline/recipe {steady / recipe_step_s:.3f} [{card}]",
+          flush=True)
+    base = tr.state_digests()
+    free_trainer(tr, device)
+    print(f"pipeline (a): {time.perf_counter() - t_part:.1f} s", flush=True)
+
+    # (b) the same, stage 1 killed in step 3's first forward
+    t_part = time.perf_counter()
+    tr = pipeline_trainer(train, builders(2), M)
+    tr.start()
+    tr.handles[1]._fail_at = (steps, "F")
+    zero_counts(ops)                   # main path: recovery and replay
+    t0 = time.perf_counter()
+    tr.fit(data_fn, steps)
+    fit_s = time.perf_counter() - t0
+    add_counts(total, ops)
+    digests = tr.state_digests()
+    print(f"pipeline elastic: recoveries {tr.recoveries}, fit {fit_s:.2f} "
+          f"s, part (b) {time.perf_counter() - t_part:.1f} s; digests equal "
+          f"the uninterrupted run's: {digests == base}", flush=True)
+    if not tr.recoveries or digests != base:
+        fail("the pipeline's recovery did not land the uninterrupted run's "
+             "state bit for bit")
+    check_compiled_once("pipeline elastic", tr)
+    free_trainer(tr, device)
+
+    # (c) 4 virtual stages on 2 hosts against the plain 4-stage pipeline
+    t_part = time.perf_counter()
+    runs = {}
+    for v in (1, 2):
+        tr = pipeline_trainer(train, builders(4), M, virtual_stages=v)
+        zero_counts(ops)               # main path: 4 virtual stages
+        out = tr.fit(data_fn, inter_steps)
+        add_counts(total, ops)
+        check_compiled_once(f"pipeline virtual_stages={v}", tr)
+        runs[v] = (tr.state_digests(), out)
+        free_trainer(tr, device)
+    print(f"pipeline interleaved: 4 virtual stages of "
+          f"{cfg.n_layers // 4} blocks, {inter_steps} steps; analytic "
+          f"bubble plain (4 hosts) "
+          f"{runs[1][1]['bubble_fraction_analytic']:.4f}, interleaved (2 "
+          f"hosts, v=2) {runs[2][1]['bubble_fraction_analytic']:.4f}; "
+          f"step walls plain "
+          f"{[h['wall_s'] for h in runs[1][1]['history']]} s, interleaved "
+          f"{[h['wall_s'] for h in runs[2][1]['history']]} s; digests "
+          f"equal: {runs[1][0] == runs[2][0]}; part (c) "
+          f"{time.perf_counter() - t_part:.1f} s", flush=True)
+    if runs[1][0] != runs[2][0]:
+        fail("the interleaved pipeline's state differs from the plain one")
+
+    # (d) the SPMD pipeline_apply on a world of one rank: S = 1
+    zero_counts(ops)                   # main path: pipeline_apply
+    run_spmd_pipeline(models, parallel, ops, cfg, weights, data_fn, device,
+                      spmd_blocks, loss_chunk)
+    add_counts(total, ops)
+    del weights
+    release(device)
+    print(f"phase 13 (pipeline): {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {total}", flush=True)
+    return total
+
+
+def run_spmd_pipeline(models, parallel, ops, cfg, weights, data_fn, device,
+                      n_blocks, loss_chunk):
+    """Phase 13 (d): pipeline_apply over a mesh whose one dim is ``stage``
+    (world of one: S = 1) through n_blocks blocks as one stage, against
+    the same blocks run microbatch by microbatch: the loss and every
+    gradient bitwise equal, the same kernel launches."""
+    from torch.func import functional_call
+    mesh = mesh_of(parallel, device, fsdp=1, stage=-1)
+    stage = models.BlockStage(cfg, n_blocks, device="meta")
+    sd = models.stage_state_dict(weights, 0, n_blocks)
+    unembed = weights["unembed"].to(cfg.dtype)
+    inputs, targets = data_fn(1)
+    xs = torch.stack(inputs).to(device)
+    tgts = [t.to(device) for t in targets]
+
+    def stage_fn(p, x):
+        return functional_call(stage, p, (x,))
+
+    def loss_of(ys):
+        return sum(parallel.chunked_cross_entropy(
+            ys[m], unembed, tgts[m], chunk=loss_chunk)[0]
+            for m in range(len(tgts))) / len(tgts)
+
+    params = parallel.shard_stage_params(
+        parallel.stack_stage_params([sd]), mesh)
+    for p in params.values():
+        p.requires_grad_(True)
+    before = read_counts(ops)
+    loss = loss_of(parallel.pipeline_apply(stage_fn, params, xs, mesh))
+    loss.backward()
+    sync(device)
+    mid = read_counts(ops)
+    plain = {k: v.clone().requires_grad_(True) for k, v in sd.items()}
+    ref = loss_of(torch.stack([stage_fn(plain, x) for x in xs]))
+    ref.backward()
+    sync(device)
+    after = read_counts(ops)
+    launches = [{k: mid[k] - before[k] for k in mid},
+                {k: after[k] - mid[k] for k in mid}]
+    equal = [torch.equal(params[k].grad.to_local()[0], plain[k].grad)
+             for k in sd]
+    print(f"pipeline_apply on mesh {mesh.mesh_dim_names} "
+          f"{tuple(mesh.shape)}: {n_blocks} blocks, {len(tgts)} "
+          f"microbatches; loss {loss.item():.6f} vs one after another "
+          f"{ref.item():.6f} (bitwise {torch.equal(loss, ref)}); gradients "
+          f"bitwise equal {sum(equal)}/{len(equal)}; launches {launches}",
+          flush=True)
+    if not torch.equal(loss, ref) or not all(equal):
+        fail("pipeline_apply at S = 1 differs from the blocks run one after "
+             "another")
+    if launches[0] != launches[1]:
+        fail(f"pipeline_apply launched {launches[0]}, the blocks one after "
+             f"another {launches[1]}")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
              "card")
-    from ray_tpu_torch import inference, models, parallel
+    from ray_tpu_torch import inference, models, parallel, train
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as ops
 
@@ -1952,13 +2232,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     run_recipe_parity(models, parallel)
-    recipe_counts = run_recipe(models, parallel, ops, card)
+    recipe_counts, recipe_step_s = run_recipe(models, parallel, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
     feature_counts = run_engine_features(models, inference, ops, card)
     moe_serve_launches = run_moe_serving(models, inference, ops, card)
     run_recipe_parity(models, parallel, name="mixtral-8x7b")
-    moe_train_counts = run_recipe(models, parallel, ops, card,
+    moe_train_counts, _ = run_recipe(models, parallel, ops, card,
                                   name="mixtral-8x7b", n_layers=4)
     gc.collect()
     torch.cuda.empty_cache()
@@ -1969,12 +2249,16 @@ def main():
         run_mesh_train(models, parallel, ops, card, name="mixtral-8x7b",
                        n_layers=4, steps=2, together=False, fsdp=1,
                        expert=-1)]
+    pipeline_counts = run_pipeline(models, parallel, train, ops, card,
+                                   recipe_step_s)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)
                                      + moe_train_counts[name]
-                                     + sum(c[name] for c in mesh_counts))
+                                     + sum(c[name] for c in mesh_counts)
+                                     + pipeline_counts[name])
         records[name]["mesh_launches"] = sum(c[name] for c in mesh_counts)
+        records[name]["pipeline_launches"] = pipeline_counts[name]
     records["flash_fwd"]["launches"] += (gen_launches + eng_launches
                                          + moe_serve_launches)
     for name in KERNELS:

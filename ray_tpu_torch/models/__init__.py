@@ -1,5 +1,6 @@
-from ray_tpu_torch.models.transformer import (TransformerConfig, TransformerLM,
-                                              count_params, init_cache)
+from ray_tpu_torch.models.transformer import (BlockStage, TransformerConfig,
+                                              TransformerLM, count_params,
+                                              init_cache)
 
 # The same configurations as ray_tpu.models.MODEL_REGISTRY.
 MODEL_REGISTRY = {
@@ -44,13 +45,15 @@ MODEL_REGISTRY = {
         d_ff=14336, max_seq_len=4096, n_experts=8, expert_top_k=2),
 }
 
-from ray_tpu_torch.models.convert import (init_params,  # noqa: E402
-                                          jax_leaf_groups, params_from_jax)
+from ray_tpu_torch.models.convert import (  # noqa: E402
+    block_params_from_jax, init_params, jax_leaf_groups, params_from_jax,
+    stage_state_dict)
 from ray_tpu_torch.models.generate import make_generate_fn  # noqa: E402
 from ray_tpu_torch.models.sampling import (sample_logits,  # noqa: E402
                                            sample_logits_dynamic)
 
-__all__ = ["TransformerConfig", "TransformerLM", "MODEL_REGISTRY",
-           "count_params", "init_cache", "init_params", "jax_leaf_groups",
-           "make_generate_fn",
-           "params_from_jax", "sample_logits", "sample_logits_dynamic"]
+__all__ = ["BlockStage", "TransformerConfig", "TransformerLM",
+           "MODEL_REGISTRY", "block_params_from_jax", "count_params",
+           "init_cache", "init_params", "jax_leaf_groups", "make_generate_fn",
+           "params_from_jax", "sample_logits", "sample_logits_dynamic",
+           "stage_state_dict"]

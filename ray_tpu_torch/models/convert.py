@@ -50,27 +50,58 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     ``load_state_dict`` casts them to the model's)."""
     blk = tree["layers"]["block"]
     n_layers = np.asarray(blk["attn_norm"]["scale"]).shape[0]
-    moe = "moe" in blk
     sd = {"embed": torch.from_numpy(np.array(tree["embed"])),
           "final_norm.scale": torch.from_numpy(
               np.array(tree["final_norm"]["scale"]))}
     if "unembed" in tree:
         sd["unembed"] = torch.from_numpy(np.array(tree["unembed"]))
     for i in range(n_layers):
-        for mod, name in _linears(moe):
-            w = np.array(blk[mod][name]["kernel"][i])
-            if name == "o":                  # [H, D, d_model]
-                w = w.reshape(-1, w.shape[-1])
-            else:                            # [d_model, (H|Hkv, D) | d_ff]
-                w = w.reshape(w.shape[0], -1)
-            sd[f"layers.{i}.{mod}.{name}"] = torch.from_numpy(w)
-        for name in _MOE if moe else ():
-            sd[f"layers.{i}.moe.{name}"] = torch.from_numpy(
-                np.array(blk["moe"][name][i]))
-        for norm in ("attn_norm", "mlp_norm"):
-            sd[f"layers.{i}.{norm}.scale"] = torch.from_numpy(
-                np.array(blk[norm]["scale"][i]))
+        for name, t in block_params_from_jax(_layer(blk, i)).items():
+            sd[f"layers.{i}.{name}"] = t
     return sd
+
+
+def _layer(tree, i: int):
+    """Layer i of a tree whose leaves stack the layers on axis 0."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def block_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """One JAX ``Block``'s param tree (a block initialised or applied on
+    its own, not stacked under ``layers``; leaves as numpy arrays) ->
+    the port ``Block``'s state_dict of CPU tensors. A gradient tree of
+    the same structure maps the same way."""
+    moe = "moe" in tree
+    sd = {}
+    for mod, name in _linears(moe):
+        w = np.array(tree[mod][name]["kernel"])
+        if name == "o":                      # [H, D, d_model]
+            w = w.reshape(-1, w.shape[-1])
+        else:                                # [d_model, (H|Hkv, D) | d_ff]
+            w = w.reshape(w.shape[0], -1)
+        sd[f"{mod}.{name}"] = torch.from_numpy(w)
+    for name in _MOE if moe else ():
+        sd[f"moe.{name}"] = torch.from_numpy(np.array(tree["moe"][name]))
+    for norm in ("attn_norm", "mlp_norm"):
+        sd[f"{norm}.scale"] = torch.from_numpy(
+            np.array(tree[norm]["scale"]))
+    return sd
+
+
+def stage_state_dict(state_dict: Dict[str, torch.Tensor], first: int,
+                     n_blocks: int) -> Dict[str, torch.Tensor]:
+    """The weights of blocks first .. first + n_blocks - 1 of a model's
+    state_dict, renamed for a ``BlockStage`` of n_blocks (``layers.{i}``
+    counted from the stage's first block)."""
+    out = {}
+    for name, t in state_dict.items():
+        parts = name.split(".", 2)
+        if parts[0] == "layers" and \
+                first <= int(parts[1]) < first + n_blocks:
+            out[f"layers.{int(parts[1]) - first}.{parts[2]}"] = t
+    return out
 
 
 def _linear_shape(cfg: TransformerConfig, name: str):

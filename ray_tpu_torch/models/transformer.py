@@ -321,6 +321,30 @@ class Block(nn.Module):
         return (h + y, aux) if cache is None else (h + y, new_cache)
 
 
+class BlockStage(nn.Module):
+    """A run of consecutive blocks as one pipeline stage
+    (``parallel.pipeline``, ``train.mpmd``): x [B, L, d_model] in
+    ``cfg.dtype`` -> the blocks' output at positions 0..L-1, as the JAX
+    pipelines' stage functions apply their blocks; an expert block's aux
+    loss is dropped, as theirs drop it. Its parameters are named as the
+    model's (``layers.{i}....``, i counted within the stage), so
+    ``convert.stage_state_dict`` cuts a stage's weights out of a model's
+    state_dict. Allocation as ``TransformerLM``."""
+
+    def __init__(self, cfg: TransformerConfig, n_blocks: int, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(n_blocks))
+
+    def forward(self, x):
+        B, L, _ = x.shape
+        positions = _positions(0, L, x.device).expand(B, L)
+        for block in self.layers:
+            x, _ = block(x, positions)
+        return x
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None, device="cuda"):
     """Fresh KV cache: {'k','v': [n_layers,B,max_len,Hkv,D], 'idx': 0}

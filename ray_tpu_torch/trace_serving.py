@@ -56,12 +56,14 @@ def _device_us(evt):
 
 
 # kernel families by name: the port's kernels, cuBLAS GEMMs, the
-# multi-tensor kernels of the optimizer and the gradient norm, and the sort
-# and cumulative sum of an expert layer's routing
+# multi-tensor kernels of the optimizer and the gradient norm, the sort
+# and cumulative sum of an expert layer's routing, and the copies between
+# host and device
 FAMILIES = (("flash attention (ours)", ("flash_",)),
             ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
             ("multi-tensor (AdamW, grad norm)", ("multi_tensor_apply",)),
-            ("sort and scan (MoE routing)", ("sort", "Sort", "scan", "Scan")))
+            ("sort and scan (MoE routing)", ("sort", "Sort", "scan", "Scan")),
+            ("memcpy (host hops, snapshots)", ("Memcpy",)))
 
 
 def model_args(description, model, layers=None):

@@ -2,6 +2,7 @@
 
     python -m ray_tpu_torch.trace_train [--model tpu-3b] [--layers N]
                                         [--settings fp32,dots,nothing,off]
+                                        [--pipeline S]
 
 Builds a model of ``MODEL_REGISTRY`` (tpu-3b by default) at full width
 with seeded weights, at its full depth or cut to ``--layers``, and trains
@@ -26,6 +27,15 @@ torch.profiler and prints the device time by kernel (the largest,
 then the rest of the port's own) and by kernel family and the device's
 busy share of the traced wall time.
 
+With ``--pipeline S`` it instead runs the recipe's blocks (bf16 weights,
+adafactor(3e-4)) as an in-process MPMD pipeline of S stages
+(``train.mpmd``, 1F1B), 4 microbatches of 1 x 1024 per step (the same
+4096 tokens), the embedding and unembedding outside the stages: it times
+steps after two warm-up steps, then traces one step and splits its
+device time by stage program (``mpmd.fwd``: the forwards; ``mpmd.bwd``:
+each backward's recompute and gradients; ``mpmd.acc``, ``mpmd.apply``)
+and by kernel family, the host hops being the memcpy rows.
+
 Needs a CUDA card. Prints the card's name and power limit first.
 """
 
@@ -37,10 +47,12 @@ import gc
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from ray_tpu_torch.models import TransformerLM
+from ray_tpu_torch.models import TransformerLM, init_params
 from ray_tpu_torch.parallel import adafactor, adamw, make_train_fns
-from ray_tpu_torch.trace_serving import (card_line, model_args, model_config,
-                                         report, timed_ms)
+from ray_tpu_torch.trace_serving import (_device_us, card_line, model_args,
+                                         model_config, report, timed_ms)
+from ray_tpu_torch.train import (MPMDConfig, MPMDPipelineTrainer,
+                                 block_stage_builders)
 
 B = 4        # sequences per step
 L = 1024     # tokens per sequence
@@ -82,6 +94,60 @@ def run(title, cfg, optimizer, traced=True):
     return step_ms
 
 
+def run_pipeline(title, cfg, n_stages):
+    """Time and trace the recipe's blocks as an MPMD pipeline (see the
+    module docstring)."""
+    weights = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda", dtype=cfg.param_dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, 1, L + 1), device="cuda",
+                         generator=g)
+    inputs = [weights["embed"][t[:, :-1]].to(cfg.dtype).cpu() for t in toks]
+    targets = [t[:, 1:].cpu() for t in toks]
+    # a replay window past the run: no checkpoint inside the traced step
+    tr = MPMDPipelineTrainer(
+        block_stage_builders(cfg, weights, n_stages, adafactor(3e-4)),
+        MPMDConfig(n_microbatches=B, replay_depth=8))
+    del weights
+    traced = STEPS + 2
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def data_fn(step):
+        if step == 3:
+            torch.cuda.reset_peak_memory_stats()
+        if step == traced:
+            prof.__enter__()
+        return inputs, targets
+
+    out = tr.fit(data_fn, traced)
+    prof.__exit__(None, None, None)
+    rows = out["history"]
+    step_ms = sum(h["wall_s"] for h in rows[2:-1]) * 1e3 / (traced - 3)
+    print(f"{title}, {n_stages} stages, {B} microbatches of 1x{L}: step "
+          f"{step_ms:.2f} ms ({B * L * 1e3 / step_ms:.1f} tokens/s), peak "
+          f"memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB, analytic bubble {out['bubble_fraction_analytic']:.4f}")
+    last = rows[-1]
+    compute = [last[f"stage{s}_compute_s"] * 1e3 for s in range(n_stages)]
+    wall = last["wall_s"] * 1e3
+    print(f"traced step: wall {wall:.2f} ms, stage compute "
+          f"{[round(c, 2) for c in compute]} ms, host (hops and dispatch) "
+          f"{wall - sum(compute):.2f} ms, measured bubble "
+          f"{[last[f'stage{s}_bubble_fraction'] for s in range(n_stages)]}")
+    report(f"trace: one {title} pipeline step", prof, wall)
+    ranges = {}
+    for e in prof.key_averages():
+        if e.key.startswith("mpmd.") and _device_us(e) > 0:
+            ranges[e.key] = ranges.get(e.key, 0.0) + _device_us(e) / 1e3
+    print("  device time under each stage program: " + (", ".join(
+        f"{k} {v:.2f} ms" for k, v in sorted(ranges.items()))
+        or "none recorded"))
+    tr.shutdown()
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 SETTINGS = ("fp32", "dots", "nothing", "off")
 
 
@@ -90,6 +156,9 @@ def main():
                         "tpu-3b")
     parser.add_argument("--settings", default=",".join(SETTINGS),
                         help="comma-separated, of " + ", ".join(SETTINGS))
+    parser.add_argument("--pipeline", type=int, default=None, metavar="S",
+                        help="trace the recipe as an MPMD pipeline of S "
+                        "stages instead")
     args = parser.parse_args()
     settings = args.settings.split(",")
     if not set(settings) <= set(SETTINGS):
@@ -102,6 +171,11 @@ def main():
     name = f"{args.model}, {base.n_layers} layers"
     recipe = dataclasses.replace(base, param_dtype=torch.bfloat16,
                                  remat=True, remat_policy="dots")
+    if args.pipeline is not None:
+        run_pipeline(f"{name}: recipe blocks (bf16, Adafactor)", recipe,
+                     args.pipeline)
+        print(f"card: {card}")
+        return
     runs = {
         "fp32": (f"{name}: fp32 AdamW, no remat",
                  dataclasses.replace(base, remat=False), adamw, True),

@@ -1,0 +1,78 @@
+"""URI-addressed storage for the pipeline trainer's stage shards.
+
+Counterpart of the part of ``ray_tpu/util/storage.py`` that checkpoints
+use: plain paths and ``file://`` map to the local filesystem through the
+standard library; any other scheme (gs://, s3://, memory://, ...)
+resolves through fsspec, imported only when such a URI is used.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Tuple
+
+
+def _split(uri: str) -> Tuple[str, str]:
+    """-> (scheme, path); plain paths get scheme ''. file: URIs normalize
+    to plain absolute paths in both RFC-8089 forms, file:///x and
+    file:/x."""
+    if "://" in uri:
+        scheme, rest = uri.split("://", 1)
+        if scheme == "file":
+            return "", "/" + rest.lstrip("/")
+        return scheme, uri
+    if uri.startswith("file:"):
+        return "", "/" + uri[len("file:"):].lstrip("/")
+    return "", uri
+
+
+def is_remote(uri: str) -> bool:
+    return _split(uri)[0] != ""
+
+
+def _fs(uri: str):
+    import fsspec
+    return fsspec.core.url_to_fs(uri)   # (fs, path)
+
+
+def join(uri: str, *parts: str) -> str:
+    if is_remote(uri):
+        return "/".join([uri.rstrip("/")] + [p.strip("/") for p in parts])
+    return os.path.join(_split(uri)[1], *parts)
+
+
+def makedirs(uri: str) -> None:
+    scheme, path = _split(uri)
+    if not scheme:
+        os.makedirs(path, exist_ok=True)
+        return
+    fs, p = _fs(uri)
+    fs.makedirs(p, exist_ok=True)
+
+
+def write_bytes(uri: str, data: bytes) -> None:
+    """Write atomically on a local path (a temporary file, then rename)."""
+    scheme, path = _split(uri)
+    if not scheme:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+        return
+    fs, p = _fs(uri)
+    parent = p.rsplit("/", 1)[0]
+    if parent:
+        fs.makedirs(parent, exist_ok=True)
+    with fs.open(p, "wb") as f:
+        f.write(data)
+
+
+def read_bytes(uri: str) -> bytes:
+    scheme, path = _split(uri)
+    if not scheme:
+        with open(path, "rb") as f:
+            return f.read()
+    fs, p = _fs(uri)
+    with fs.open(p, "rb") as f:
+        return f.read()

@@ -26,12 +26,18 @@ def test_port_imports_no_jax_and_no_ray_tpu():
     assert not bad, bad
 
 
-# what the mesh tests' gloo ranks import: they must start without JAX
-WORLD_FILES = ("tests/torch_world.py", "tests/torch_mesh_cases.py")
+# what the mesh and pipeline tests' gloo ranks import: they must start
+# without JAX
+WORLD_FILES = ("tests/torch_world.py", "tests/torch_mesh_cases.py",
+               "tests/torch_pipeline_cases.py")
 MESH_MODULES = ("ray_tpu_torch.parallel.mesh",
                 "ray_tpu_torch.parallel.sharding",
+                "ray_tpu_torch.parallel.pipeline",
                 "ray_tpu_torch.ops.ring_attention",
-                "ray_tpu_torch.ops.dispatch", "ray_tpu_torch.models.axes")
+                "ray_tpu_torch.ops.dispatch", "ray_tpu_torch.models.axes",
+                "ray_tpu_torch.train.config", "ray_tpu_torch.train.mpmd",
+                "ray_tpu_torch.train.sharded_checkpoint",
+                "ray_tpu_torch.util.storage")
 
 
 def test_mesh_worlds_import_no_jax():
@@ -52,7 +58,7 @@ def test_every_module_imports_without_jax():
                   for p in (ROOT / "ray_tpu_torch").rglob("*.py")
                   if p.name != "__init__.py")
     assert set(MESH_MODULES) <= set(mods)
-    mods += ["tests.torch_world", "tests.torch_mesh_cases"]
+    mods += [f[:-3].replace("/", ".") for f in WORLD_FILES]
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}:\n"
             f"    importlib.import_module(m)\n"
