@@ -130,15 +130,39 @@ Phases, each of which must pass (any failure exits non-zero):
     mesh whose one dim is ``stage`` (world of one, S = 1), 2 blocks, 4
     microbatches: the loss and every gradient bitwise equal to the blocks
     run microbatch by microbatch.
-14. A JSON line of the kernels (with each one's TFLOP/s, its share of the
+14. The runtime core (ray_tpu_torch.init: the port's GCS, node manager,
+    workers and shared-memory store) on the card. (a) init() with no
+    resources must detect one GPU, with no torch or CUDA library mapped in
+    the GCS or the node manager; a num_gpus=1 task must see
+    CUDA_VISIBLE_DEVICES "0" and run B1 at the tpu-7b prefill shape on
+    tensors sent from the driver's card, its o and lse back on cuda:0
+    within phase 2's bounds of the plain version, its worker's launch
+    count risen; two num_gpus=0.5 actors must share id 0 and a num_gpus=1
+    task must wait until both are gone. (b) A 1 GiB bf16 tensor through
+    put and get from the CPU (read zero-copy: the result's storage lies
+    in the arena) and from the card (back on cuda:0), and a CUDA tensor
+    returned by a GPU actor: each bitwise equal; the put and get GB/s are
+    printed. (c) Phase 13 (a)'s pipeline with remote=True: each stage an
+    actor with {"GPU": 0.5}, the weights through the object store; the
+    step losses and state digests must equal 13 (a)'s bit for bit, and
+    each step's B1/B2/B3 launches, counted in the actor processes and
+    summed by the trainer, 192/96/96; the step time, its ratio to 13 (a),
+    per-stage compute and each actor's peak memory are printed. (d) The
+    same with stage 1's actor killed (ray_tpu_torch.kill) during step 3:
+    the trainer provisions a new actor, restores it and replays, to (c)'s
+    bits. After shutdown no ray_tpu_torch process and no
+    /dev/shm/raytpu_torch_* file may remain.
+15. A JSON line of the kernels (with each one's TFLOP/s, its share of the
     bound, whether it runs on the tensor cores and its launches on the
-    mesh's and the pipeline's paths), the card line again, and last the
-    result.
+    mesh's, the pipeline's and the actors' paths), the card line again,
+    and last the result.
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
 Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
-9, 10, 12, each part of 13) and read just after it; launches made to compare or time a
+9, 10, 12, each part of 13) and read just after it; phase 14's stage
+actors are fresh processes whose counts start at 0, and the trainer sums
+what each reports per step; launches made to compare or time a
 kernel (2, 5, the remat checks of 7 and 10, 11, phase 12's no-mesh
 generator and its dispatch check) do not count. Phase 12's no-mesh
 trainers are the steps its mesh steps are held to, and count; so do phase
@@ -1988,7 +2012,8 @@ def run_pipeline(models, parallel, train, ops, card, recipe_step_s,
                  lr=3e-4):
     """Phase 13: the in-process MPMD pipeline trainer and the SPMD
     pipeline_apply on cfg's recipe blocks. Returns the kernel launch
-    counts of (a)-(d) together."""
+    counts of (a)-(d) together and (a)'s run (step losses, state digests,
+    step time), which phase 14's actor stages are held to."""
     t_phase = time.perf_counter()
     cfg = recipe_cfg(models, name)
     if n_layers is not None:
@@ -2072,6 +2097,9 @@ def run_pipeline(models, parallel, train, ops, card, recipe_step_s,
           f"pipeline/recipe {steady / recipe_step_s:.3f} [{card}]",
           flush=True)
     base = tr.state_digests()
+    in_process = {"losses": [h["loss"] for h in out["history"]],
+                  "digests": base, "step_s": steady,
+                  "launches": per_step}
     free_trainer(tr, device)
     print(f"pipeline (a): {time.perf_counter() - t_part:.1f} s", flush=True)
 
@@ -2128,7 +2156,7 @@ def run_pipeline(models, parallel, train, ops, card, recipe_step_s,
     release(device)
     print(f"phase 13 (pipeline): {time.perf_counter() - t_phase:.1f} s, "
           f"launches {total}", flush=True)
-    return total
+    return total, in_process
 
 
 def run_spmd_pipeline(models, parallel, ops, cfg, weights, data_fn, device,
@@ -2186,6 +2214,366 @@ def run_spmd_pipeline(models, parallel, ops, cfg, weights, data_fn, device,
              f"another {launches[1]}")
 
 
+# ------------------------------------------------------------- phase 14
+
+# the flash kernels' wrapper names, as the actor stages report launches
+WRAPPER_OF = {"flash_fwd": "flash_attention_fwd",
+              "flash_bwd_dq": "flash_attention_bwd_dq",
+              "flash_bwd_dkv": "flash_attention_bwd_dkv"}
+
+
+def _b1_in_worker(q, k, v):
+    """Phase 14 (a), in a num_gpus=1 worker: B1 on tensors that arrived
+    from the driver's card, with this process's launch counter."""
+    from ray_tpu_torch.ops import attention as ops
+    before = ops.flash_attention_fwd.launches
+    o, lse = ops.flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    return {"mask": os.environ.get("CUDA_VISIBLE_DEVICES"), "o": o,
+            "lse": lse, "launches": ops.flash_attention_fwd.launches - before,
+            "device": str(o.device), "name": torch.cuda.get_device_name(0)}
+
+
+def _mask_of_worker():
+    return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+class _HalfGpu:
+    """A num_gpus=0.5 actor: reports the mask its process was given."""
+
+    def mask(self):
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+class _CudaMaker:
+    """A GPU actor returning a CUDA tensor made from a seed."""
+
+    def make(self, n, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
+
+
+def _session_pids(session, module=None):
+    """PIDs of the runtime session ``session``: processes whose arguments
+    carry its name (the GCS, node managers and workers are started with
+    ``--session-name``), running ``module`` if given. Another runtime on
+    the machine has another session name."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if session.encode() in argv and (
+                module is None or module.encode() in argv):
+            out.append(int(pid))
+    return out
+
+
+def _loads_torch(pid):
+    """Whether a process has libtorch or the CUDA driver mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+    except OSError:
+        return None
+    return "libtorch" in maps or "libcuda" in maps
+
+
+def _arena(rt):
+    import ctypes
+    store = rt._get_worker().core.store
+    base = ctypes.addressof(store._mem)
+    return base, base + ctypes.sizeof(store._mem)
+
+
+def runtime_card(rt, ops, card):
+    """Phase 14 (a): GPUs detected by the control plane, masks, B1 in a
+    worker, and fractional sharing."""
+    res = rt.cluster_resources()
+    session = rt._context.node.session_name
+    control = {w: _session_pids(session, f"ray_tpu_torch._private.{w}")
+               for w in ("gcs", "node_manager")}
+    torch_in_control = {w: [_loads_torch(p) for p in pids]
+                        for w, pids in control.items()}
+    print(f"runtime: cluster_resources {res}; control-plane processes "
+          f"{control}, libtorch/libcuda mapped {torch_in_control} [{card}]",
+          flush=True)
+    if res.get("GPU") != 1.0:
+        fail(f"the runtime detected {res.get('GPU')} GPUs, want 1")
+    if not all(control.values()) or any(
+            v is not False for vs in torch_in_control.values() for v in vs):
+        fail("a control-plane process loaded torch or CUDA (or was not "
+             "found)")
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = case_inputs(g, "tpu-7b prefill", 8, 512, 512, 32, 8, 128,
+                          torch.bfloat16)
+    t0 = time.perf_counter()
+    got = rt.get(rt.remote(num_gpus=1)(_b1_in_worker).remote(q, k, v),
+                 timeout=600)
+    task_s = time.perf_counter() - t0
+    ro, rlse = ops.flash_attention_fwd_reference(q, k, v, True)
+    o, lse = got["o"], got["lse"]
+    err_o = (o.float() - ro.float()).abs().max().item()
+    err_lse = (lse - rlse).abs().max().item()
+    ok = (o.device == q.device and lse.device == q.device
+          and torch.allclose(o.float(), ro.float(), rtol=BF16_TOL,
+                             atol=BF16_TOL)
+          and torch.allclose(lse, rlse, rtol=FP32_TOL, atol=FP32_TOL))
+    print(f"runtime: a num_gpus=1 task saw CUDA_VISIBLE_DEVICES="
+          f"{got['mask']!r} ({got['name']}, {got['device']}), ran B1 at the "
+          f"tpu-7b prefill shape (8x512, H=32, Hkv=8, D=128, bf16) with "
+          f"{got['launches']} launch(es) in the worker, returned o on "
+          f"{o.device}: max|o-plain| {err_o:.3e}, max|lse-plain| "
+          f"{err_lse:.3e} (tol {BF16_TOL:g}/{FP32_TOL:g}); task with the "
+          f"worker's start {task_s:.2f} s", flush=True)
+    if got["mask"] != "0" or got["launches"] < 1 or not ok:
+        fail("the GPU task's mask, launch count or B1 result is wrong")
+    del q, k, v, o, lse, ro, rlse
+
+    half = rt.remote(num_gpus=0.5)(_HalfGpu)
+    a, b = half.remote(), half.remote()
+    masks = rt.get([a.mask.remote(), b.mask.remote()], timeout=300)
+    whole = rt.remote(num_gpus=1)(_mask_of_worker).remote()
+    ready, _ = rt.wait([whole], timeout=3.0)
+    waited = not ready
+    rt.kill(a)
+    rt.kill(b)
+    after = rt.get(whole, timeout=300)
+    print(f"runtime: two num_gpus=0.5 actors got masks {masks}; a "
+          f"num_gpus=1 task waited while they lived: {waited}, then ran "
+          f"with {after!r}", flush=True)
+    if masks != ["0", "0"] or not waited or after != "0":
+        fail("fractional GPUs were not shared, or a whole request did not "
+             "wait for them")
+
+
+def runtime_objects(rt, card):
+    """Phase 14 (b): a 1 GiB bf16 tensor through the store from the CPU
+    (zero-copy read) and from the card, and a CUDA tensor returned by a
+    GPU actor."""
+    n = 2 ** 29                       # 1 GiB of bf16
+    g = torch.Generator(device="cuda").manual_seed(15)
+    on_card = torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
+    host = on_card.cpu()
+    gb = n * 2 / 1e9                  # GB/s below: 10^9 bytes a second
+    lo, hi = _arena(rt)
+    rates = {}
+    t0 = time.perf_counter()
+    ref = rt.put(host)
+    rates["cpu_put"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = rt.get(ref)
+    rates["cpu_get"] = time.perf_counter() - t0
+    zero_copy = lo <= got.data_ptr() < hi
+    cpu_equal = torch.equal(got, host)
+    del got, ref
+    t0 = time.perf_counter()
+    ref = rt.put(on_card)
+    rates["cuda_put"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = rt.get(ref)
+    torch.cuda.synchronize()
+    rates["cuda_get"] = time.perf_counter() - t0
+    cuda_equal = got.device == on_card.device and torch.equal(got, on_card)
+    del got, ref, host
+    maker = rt.remote(num_gpus=1)(_CudaMaker).remote()
+    t0 = time.perf_counter()
+    from_actor = rt.get(maker.make.remote(n, 15), timeout=600)
+    torch.cuda.synchronize()
+    actor_s = time.perf_counter() - t0
+    actor_equal = (from_actor.device == on_card.device
+                   and torch.equal(from_actor, on_card))
+    rt.kill(maker)
+    del from_actor, on_card
+    torch.cuda.empty_cache()
+    print(f"runtime objects: 1 GiB bf16 tensor: CPU put "
+          f"{gb / rates['cpu_put']:.2f} GB/s ({rates['cpu_put']:.3f} s), "
+          f"get {gb / rates['cpu_get']:.2f} GB/s ({rates['cpu_get']:.6f} s, "
+          f"zero-copy {zero_copy}), bitwise equal {cpu_equal}; CUDA put "
+          f"{gb / rates['cuda_put']:.2f} GB/s ({rates['cuda_put']:.3f} s), "
+          f"get to cuda:0 {gb / rates['cuda_get']:.2f} GB/s "
+          f"({rates['cuda_get']:.3f} s), bitwise equal {cuda_equal}; a "
+          f"GPU actor's CUDA tensor landed on cuda:0 in {actor_s:.2f} s "
+          f"(the actor's start included), bitwise equal {actor_equal} "
+          f"[{card}]", flush=True)
+    if not (zero_copy and cpu_equal and cuda_equal and actor_equal):
+        fail("a tensor did not come back bitwise equal, or the CPU read "
+             "was not zero-copy")
+
+
+def runtime_pipeline(models, parallel, train, ops, card, in_process,
+                     device="cuda", name="tpu-3b", n_layers=None, L=1024,
+                     M=4, steps=3, loss_chunk=256, lr=3e-4):
+    """Phase 14 (c) and (d): phase 13 (a)'s pipeline (the same arguments,
+    so the same seed) with its two stages as actors, each given half of
+    the card, then with stage 1's actor killed twice at fixed points.
+    Returns the flash launches the actors counted in (c) and (d)."""
+    import ray_tpu_torch as rt
+    cfg = recipe_cfg(models, name)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    weights = models.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device,
+        dtype=cfg.param_dtype)
+    data_fn = pipeline_data(cfg, weights, device, M, L, steps)
+    t0 = time.perf_counter()
+    wref = rt.put({k: v.cpu() for k, v in weights.items()})
+    put_s = time.perf_counter() - t0
+    del weights
+    release(device)
+    builders = train.block_stage_builders(
+        cfg, wref, 2, parallel.adafactor(lr), loss_chunk, device=device)
+    gpus = [{"GPU": 0.5}] * 2 if device == "cuda" else None
+    want = {WRAPPER_OF[k]: n for k, n in in_process["launches"].items()}
+    total = {k: 0 for k in WRAPPER_OF}
+
+    def trainer(provision_fn=None, **config):
+        return train.MPMDPipelineTrainer(
+            builders, train.MPMDConfig(n_microbatches=M, **config),
+            train.FailureConfig(max_failures=2, restart_policy="stage",
+                                restart_backoff_s=0.0),
+            remote=True, stage_resources=gpus, provision_fn=provision_fn)
+
+    def add(history):
+        for h in history:
+            for k in WRAPPER_OF:
+                total[k] += h.get("launches", {}).get(WRAPPER_OF[k], 0)
+
+    # (c)
+    tr = trainer()
+    t0 = time.perf_counter()
+    tr.start()
+    start_s = time.perf_counter() - t0
+    zero_counts(ops)                  # main path: in the stage actors
+    out = tr.fit(data_fn, steps)
+    if any(read_counts(ops).values()):
+        fail("the driver launched a kernel; the stages must")
+    add(out["history"])
+    losses = [h["loss"] for h in out["history"]]
+    digests = tr.state_digests()
+    walls = [h["wall_s"] for h in out["history"]]
+    steady = float(np.median(walls[1:]))
+    mem = tr.memory_stats()
+    launches = [h.get("launches") for h in out["history"]]
+    print(f"runtime pipeline: {name} weights into the store "
+          f"{put_s:.2f} s; 2 stage actors (resources {gpus}, pids "
+          f"{[m['pid'] for m in mem]}) started in {start_s:.2f} s; losses "
+          f"{losses} vs in-process {in_process['losses']} (bitwise "
+          f"{losses == in_process['losses']}); digests equal "
+          f"{digests == in_process['digests']}; launches per step, summed "
+          f"over the actors {launches} (want {want} each)", flush=True)
+    for h in out["history"]:
+        compute = [h[f"stage{s}_compute_s"] for s in range(2)]
+        print(f"runtime pipeline step {h['step']}: wall "
+              f"{h['wall_s'] * 1e3:.1f} ms, stage compute "
+              f"{[round(c * 1e3, 1) for c in compute]} ms, measured "
+              f"bubble {[h[f'stage{s}_bubble_fraction'] for s in range(2)]}",
+              flush=True)
+    print(f"runtime pipeline: step time {steady * 1e3:.1f} ms (median of "
+          f"steps 2-{steps}) vs in-process {in_process['step_s'] * 1e3:.1f} "
+          f"ms, actors/in-process {steady / in_process['step_s']:.3f}; "
+          f"peak memory allocated per actor "
+          f"{[round(m['peak_bytes'] / 2 ** 30, 2) for m in mem]} GiB "
+          f"[{card}]", flush=True)
+    if losses != in_process["losses"] or digests != in_process["digests"]:
+        fail("the actor stages' losses or state differ from the in-process "
+             "pipeline's")
+    if any(x != want for x in launches):
+        fail(f"the actor stages launched {launches}, want {want} per step")
+    check_compiled_once("runtime pipeline", tr)
+    tr.shutdown()
+
+    # (d) synchronous checkpoints at every step, and stage 1's actor
+    # armed (the stage_step / stage_seal chaos channels) to die twice at
+    # fixed points: in step 2 at its 3rd op (it checks stage_step once
+    # per forward and once per backward, 2M times a step), with the
+    # step-1 boundary sealed, so the survivor rolls back to its own
+    # snapshot; then its replacement when asked for its step-2 snapshot,
+    # before sealing it, so in step 3 the survivor, whose own snapshot is
+    # newer, is restored to the step-1 boundary
+    from ray_tpu_torch.util.chaos import StageKiller
+    arms = {1: StageKiller(at_call=2 * M + 3).env({}),
+            2: StageKiller(at_call=1, channel="stage_seal").env({})}
+    made = []
+
+    def provision(idx, snapshot=None):
+        env = {}
+        if idx == 1:
+            made.append(idx)
+            env = arms.get(len(made), {})
+        return train.ActorStageHandle.provision(
+            idx, 2, M, builders[idx], snapshot,
+            resources=gpus[idx] if gpus else None,
+            extra_options={"runtime_env": {"env_vars": env}} if env else None)
+
+    tr = trainer(provision, checkpoint_every=1, async_checkpoint=False)
+    t0 = time.perf_counter()
+    out = tr.fit(data_fn, steps)
+    fit_s = time.perf_counter() - t0
+    add(out["history"])
+    digests_d = tr.state_digests()
+    got = [(r["step"], r["stages"], r["boundary"], r["survivors_restored"],
+            r["replayed_steps"]) for r in tr.recoveries]
+    want_rec = [(2, [1], 1, False, [2]), (3, [1], 1, True, [2, 3])]
+    print(f"runtime pipeline elastic: stage 1 provisioned {len(made)} "
+          f"times; recoveries (step, stages, boundary, survivors restored "
+          f"rather than rolled back, replayed) {got} (want {want_rec}), "
+          f"recovery {[r['recovery_s'] for r in tr.recoveries]} s, causes "
+          f"{[r['cause'][:120] for r in tr.recoveries]}; fit {fit_s:.2f} s; "
+          f"digests equal (c)'s: {digests_d == digests}", flush=True)
+    if got != want_rec or digests_d != digests:
+        fail("the killed stage actors were not recovered through both "
+             "ways back to a boundary, or not to (c)'s bits")
+    if any(h.get("launches") != want for h in out["history"]):
+        fail(f"the actor stages launched "
+             f"{[h.get('launches') for h in out['history']]} in (d), want "
+             f"{want} per step")
+    tr.shutdown()
+    del wref
+    return total
+
+
+def run_runtime(models, parallel, train, ops, card, in_process):
+    """Phase 14: the runtime core on the card. Returns the flash launches
+    counted in the stage actors of (c) and (d)."""
+    import glob
+
+    import ray_tpu_torch as rt
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=32 * 2 ** 30)
+    session = rt._context.node.session_name
+    print(f"runtime: init {time.perf_counter() - t0:.2f} s (session "
+          f"{session})", flush=True)
+    try:
+        runtime_card(rt, ops, card)
+        runtime_objects(rt, card)
+        counts = runtime_pipeline(models, parallel, train, ops, card,
+                                  in_process)
+    finally:
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while True:
+        # this session's processes (GCS, node managers, workers) and
+        # arenas; another runtime on the machine is not this phase's
+        left = _session_pids(session)
+        shm = glob.glob(f"/dev/shm/raytpu_torch_{session}_*")
+        if not left and not shm or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    print(f"runtime: after shutdown, the session's processes {left}, "
+          f"/dev/shm files {shm}; phase 14 {time.perf_counter() - t_phase:.1f}"
+          f" s, actor launches {counts}", flush=True)
+    if left or shm:
+        fail("the runtime left processes or shared-memory files behind")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
@@ -2194,6 +2582,8 @@ def main():
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import attention as ops
 
+    # the preemption-notice check never asks a cloud metadata server here
+    os.environ["RAY_TPU_TORCH_DISABLE_GCE_METADATA"] = "1"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2249,16 +2639,22 @@ def main():
         run_mesh_train(models, parallel, ops, card, name="mixtral-8x7b",
                        n_layers=4, steps=2, together=False, fsdp=1,
                        expert=-1)]
-    pipeline_counts = run_pipeline(models, parallel, train, ops, card,
-                                   recipe_step_s)
+    pipeline_counts, in_process = run_pipeline(models, parallel, train, ops,
+                                               card, recipe_step_s)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime_counts = run_runtime(models, parallel, train, ops, card,
+                                 in_process)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)
                                      + moe_train_counts[name]
                                      + sum(c[name] for c in mesh_counts)
-                                     + pipeline_counts[name])
+                                     + pipeline_counts[name]
+                                     + runtime_counts[name])
         records[name]["mesh_launches"] = sum(c[name] for c in mesh_counts)
         records[name]["pipeline_launches"] = pipeline_counts[name]
+        records[name]["actor_launches"] = runtime_counts[name]
     records["flash_fwd"]["launches"] += (gen_launches + eng_launches
                                          + moe_serve_launches)
     for name in KERNELS:

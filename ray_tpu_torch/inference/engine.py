@@ -27,8 +27,8 @@ Counterpart of ``ray_tpu/inference/engine.py``, on one device:
 
 Sampling is shared with ``make_generate_fn`` (models/sampling.py). A
 sharded engine (``mesh``), step profiling and flight-recorder events are
-not ported yet: they wait for the runtime core (ROADMAP.md, Queue A item
-A3b).
+not ported yet: they wait for Serve's sharded replicas and the step
+profiler (ROADMAP.md, Queue A items A3g and A3d).
 """
 
 from __future__ import annotations
@@ -113,7 +113,7 @@ class InferenceEngine:
             # sample the same tokens in lockstep (the JAX package's
             # serve/sharded.py), which sits on the runtime core
             raise NotImplementedError(
-                "a sharded engine (mesh) " + _NOT_PORTED.format("A3b"))
+                "a sharded engine (mesh) " + _NOT_PORTED.format("A3g"))
         cfg = self.config = config or EngineConfig()
         self.device = resolve_device(device)
         self.model = model

@@ -40,11 +40,9 @@ from typing import Any, Callable, Dict
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ray_tpu_torch.ops.ring_attention import ppermute
 from ray_tpu_torch.parallel.mesh import AXIS_STAGE, axis_group
-from ray_tpu_torch.parallel.sharding import spec_to_placements
 
 
 def stack_stage_params(per_stage_params: list) -> Dict[str, torch.Tensor]:
@@ -68,11 +66,16 @@ def stage_param_specs(stacked_params: Dict[str, torch.Tensor],
 
 def shard_stage_params(stacked_params: Dict[str, torch.Tensor], mesh,
                        stage_axis: str = AXIS_STAGE
-                       ) -> Dict[str, DTensor]:
+                       ) -> Dict[str, "DTensor"]:
     """Whole stacked tensors, the same on every rank -> DTensors placed as
     ``stage_param_specs`` says (each rank keeps its own stage's row; no
     communication)."""
     specs = stage_param_specs(stacked_params, stage_axis)
+    # DTensor loads here, not with the module: the MPMD schedules below
+    # need none of it
+    from torch.distributed.tensor import distribute_tensor
+
+    from ray_tpu_torch.parallel.sharding import spec_to_placements
     return {n: distribute_tensor(t, mesh, spec_to_placements(specs[n], mesh),
                                  src_data_rank=None)
             for n, t in stacked_params.items()}
@@ -120,6 +123,7 @@ def _local_row(t, s: int, n_stages: int):
     """This rank's stage row of a stacked tensor: the local [1, ...] shard
     of a DTensor sharded over stage, or row s of a plain tensor holding
     every stage."""
+    from torch.distributed.tensor import DTensor
     rows = t.to_local() if isinstance(t, DTensor) else t
     want = 1 if isinstance(t, DTensor) else n_stages
     if rows.shape[0] != want:

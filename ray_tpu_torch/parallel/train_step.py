@@ -26,7 +26,7 @@ runs as a ``local_map`` island (``ops/dispatch.py``). Each gradient is
 pinned to its parameter's placements before the norm and the update (the
 reduction over the data axes that DTensor leaves pending). A mesh of one
 rank takes the same path. The step profiler (ROADMAP.md, Queue A item
-A3b) is not ported.
+A3d) is not ported.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
     python -m ray_tpu_torch.trace_train [--model tpu-3b] [--layers N]
                                         [--settings fp32,dots,nothing,off]
-                                        [--pipeline S]
+                                        [--pipeline S [--remote]]
 
 Builds a model of ``MODEL_REGISTRY`` (tpu-3b by default) at full width
 with seeded weights, at its full depth or cut to ``--layers``, and trains
@@ -34,7 +34,12 @@ adafactor(3e-4)) as an in-process MPMD pipeline of S stages
 steps after two warm-up steps, then traces one step and splits its
 device time by stage program (``mpmd.fwd``: the forwards; ``mpmd.bwd``:
 each backward's recompute and gradients; ``mpmd.acc``, ``mpmd.apply``)
-and by kernel family, the host hops being the memcpy rows.
+and by kernel family, the host hops being the memcpy rows. With
+``--remote`` too, the stages are actors of the port's runtime
+(``ray_tpu_torch.init()``; each stage holds 1/S of the card), the weights
+go through the object store, and each actor traces the step in its own
+process: the device's busy share is the actors' kernel time over the
+step's wall (the card runs one process's kernels at a time).
 
 Needs a CUDA card. Prints the card's name and power limit first.
 """
@@ -49,8 +54,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from ray_tpu_torch.models import TransformerLM, init_params
 from ray_tpu_torch.parallel import adafactor, adamw, make_train_fns
-from ray_tpu_torch.trace_serving import (_device_us, card_line, model_args,
-                                         model_config, report, timed_ms)
+from ray_tpu_torch.trace_serving import (FAMILIES, _device_us, card_line,
+                                         model_args, model_config, report,
+                                         timed_ms)
 from ray_tpu_torch.train import (MPMDConfig, MPMDPipelineTrainer,
                                  block_stage_builders)
 
@@ -94,9 +100,9 @@ def run(title, cfg, optimizer, traced=True):
     return step_ms
 
 
-def run_pipeline(title, cfg, n_stages):
-    """Time and trace the recipe's blocks as an MPMD pipeline (see the
-    module docstring)."""
+def pipeline_inputs(cfg):
+    """Seeded weights and one step's B embedded input microbatches and
+    targets (on the host), the embedding outside the stages."""
     weights = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                           "cuda", dtype=cfg.param_dtype)
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -104,6 +110,13 @@ def run_pipeline(title, cfg, n_stages):
                          generator=g)
     inputs = [weights["embed"][t[:, :-1]].to(cfg.dtype).cpu() for t in toks]
     targets = [t[:, 1:].cpu() for t in toks]
+    return weights, inputs, targets
+
+
+def run_pipeline(title, cfg, n_stages):
+    """Time and trace the recipe's blocks as an MPMD pipeline (see the
+    module docstring)."""
+    weights, inputs, targets = pipeline_inputs(cfg)
     # a replay window past the run: no checkpoint inside the traced step
     tr = MPMDPipelineTrainer(
         block_stage_builders(cfg, weights, n_stages, adafactor(3e-4)),
@@ -148,6 +161,62 @@ def run_pipeline(title, cfg, n_stages):
     torch.cuda.empty_cache()
 
 
+def run_remote_pipeline(title, cfg, n_stages):
+    """``--pipeline S --remote``: as run_pipeline, with actor stages."""
+    import ray_tpu_torch as rt
+    rt.init(object_store_memory=32 * 2 ** 30)    # the weights, snapshots
+    try:
+        weights, inputs, targets = pipeline_inputs(cfg)
+        wref = rt.put({k: v.cpu() for k, v in weights.items()})
+        del weights
+        torch.cuda.empty_cache()
+        tr = MPMDPipelineTrainer(
+            block_stage_builders(cfg, wref, n_stages, adafactor(3e-4)),
+            MPMDConfig(n_microbatches=B, replay_depth=8), remote=True,
+            stage_resources=[{"GPU": 1.0 / n_stages}] * n_stages)
+        traced = STEPS + 2
+        tr.start()
+
+        def data_fn(step):
+            if step == traced:
+                for h in tr.handles:
+                    h.fetch(h.actor.trace_start.remote(), timeout=120)
+            return inputs, targets
+
+        out = tr.fit(data_fn, traced)
+        kernels = [h.fetch(h.actor.trace_stop.remote(), timeout=300)
+                   for h in tr.handles]
+        rows = out["history"]
+        step_ms = sum(h["wall_s"] for h in rows[2:-1]) * 1e3 / (traced - 3)
+        peaks = [round(m["peak_bytes"] / 2 ** 30, 2)
+                 for m in tr.memory_stats()]
+        print(f"{title}, {n_stages} stage actors, {B} microbatches of "
+              f"1x{L}: step {step_ms:.2f} ms ({B * L * 1e3 / step_ms:.1f} "
+              f"tokens/s), peak memory allocated per actor {peaks} GiB")
+        last = rows[-1]
+        wall = last["wall_s"] * 1e3
+        compute = [last[f"stage{s}_compute_s"] * 1e3
+                   for s in range(n_stages)]
+        busy = [sum(us for _, us, _ in ks) / 1e3 for ks in kernels]
+        print(f"traced step: wall {wall:.2f} ms, stage compute "
+              f"{[round(c, 2) for c in compute]} ms, device busy per actor "
+              f"{[round(b, 2) for b in busy]} ms, together {sum(busy):.2f} "
+              f"ms ({100 * sum(busy) / wall:.1f}% of the wall), measured "
+              f"bubble "
+              f"{[last[f'stage{s}_bubble_fraction'] for s in range(n_stages)]}")
+        family = dict.fromkeys([f for f, _ in FAMILIES] + ["other"], 0.0)
+        for ks in kernels:
+            for key, us, _ in ks:
+                f = next((f for f, keys in FAMILIES
+                          if any(k in key for k in keys)), "other")
+                family[f] += us / 1e3
+        print("  by family: " + ", ".join(
+            f"{f} {ms:.2f} ms" for f, ms in family.items()))
+        tr.shutdown()
+    finally:
+        rt.shutdown()
+
+
 SETTINGS = ("fp32", "dots", "nothing", "off")
 
 
@@ -159,6 +228,8 @@ def main():
     parser.add_argument("--pipeline", type=int, default=None, metavar="S",
                         help="trace the recipe as an MPMD pipeline of S "
                         "stages instead")
+    parser.add_argument("--remote", action="store_true",
+                        help="with --pipeline: the stages as actors")
     args = parser.parse_args()
     settings = args.settings.split(",")
     if not set(settings) <= set(SETTINGS):
@@ -171,9 +242,12 @@ def main():
     name = f"{args.model}, {base.n_layers} layers"
     recipe = dataclasses.replace(base, param_dtype=torch.bfloat16,
                                  remat=True, remat_policy="dots")
+    if args.remote and args.pipeline is None:
+        parser.error("--remote needs --pipeline S")
     if args.pipeline is not None:
-        run_pipeline(f"{name}: recipe blocks (bf16, Adafactor)", recipe,
-                     args.pipeline)
+        trace = run_remote_pipeline if args.remote else run_pipeline
+        trace(f"{name}: recipe blocks (bf16, Adafactor)", recipe,
+              args.pipeline)
         print(f"card: {card}")
         return
     runs = {

@@ -1,7 +1,7 @@
 """Train config (counterpart of ``ray_tpu/train/config.py``): the failure
 budget the MPMD pipeline trainer recovers under. ``ScalingConfig``,
 ``RunConfig`` and the rest configure the gang trainer, which sits on the
-runtime core (ROADMAP.md, Queue A item A3b) and is not ported yet."""
+train executor (ROADMAP.md, Queue A item A3c) and is not ported yet."""
 
 from __future__ import annotations
 

@@ -1,13 +1,18 @@
-"""Elastic MPMD pipeline training, in process: per-stage programs, host
-hand-offs between stages, and stage-level recovery.
+"""Elastic MPMD pipeline training: per-stage programs, host hand-offs
+between stages, and stage-level recovery, with the stages in process or
+as actors of the port's runtime.
 
-Counterpart of the in-process part of ``ray_tpu/train/mpmd.py``
-(``LocalStageHandle`` stages driven by ``MPMDPipelineTrainer``). Each
-stage is its own program with its own parameters and optimizer; the
-microbatch schedule (1F1B by default, GPipe optional, interleaved virtual
-stages — ``parallel/pipeline.py``) is dispatched by the controller, and
+Counterpart of ``ray_tpu/train/mpmd.py``. Each stage is its own program
+with its own parameters and optimizer; the microbatch schedule (1F1B by
+default, GPipe optional, interleaved virtual stages —
+``parallel/pipeline.py``) is dispatched by the controller, and
 activations and input-gradients cross every stage boundary as CPU tensors
-(the JAX trainer hands host arrays across), keeping their dtype.
+(the JAX trainer hands host arrays across), keeping their dtype. Stages
+are ``LocalStageHandle``s in process, or with ``remote=True``
+``PipelineStageActor``s (``ActorStageHandle``; ``GangStageHandle`` for a
+gang of them), each in its own worker process holding its own CUDA
+context: there the controller passes object refs from stage to stage,
+and the tensors ride the shared-memory object store.
 
 A stage's forward runs under ``no_grad`` and saves its input; its
 backward recomputes the forward under autograd and takes
@@ -20,12 +25,16 @@ place (the JAX programs donate their buffers instead).
 
 Stage loss is a first-class lifecycle:
 
-  notice   — a stage whose preemption-marker file exists is migrated at
+  notice   — a stage whose preemption-marker file exists (or whose
+             host got the platform's preemption notice,
+             ``accelerators.gpu.check_preemption_notice``) is migrated at
              the NEXT step boundary: fresh snapshot, replacement built
              from it, old stage reaped — zero steps replayed.
-  crash    — a stage that dies mid-step (``fail_at``) surfaces as a
+  crash    — a stage that dies mid-step (``fail_at``; the ``stage_step``
+             chaos spec of ``util.chaos.StageKiller``, which SIGKILLs an
+             actor stage's process; ``ray_tpu_torch.kill``) surfaces as a
              failed apply. Surviving stages PARK (abort the in-flight
-             step, roll back to the last checkpoint boundary); the lost
+             step, go back to the last checkpoint boundary); the lost
              stage is rebuilt from its snapshot (the in-memory one, else
              the durable shard under ``storage_path``) and the buffered
              input microbatches are REPLAYED through the identical
@@ -38,12 +47,18 @@ Stage loss is a first-class lifecycle:
 Snapshots are deep copies to the CPU, taken on a background thread at
 each checkpoint boundary (on a side stream that first waits for the
 apply's kernels), and joined before the next apply changes the
-parameters in place.
+parameters in place. A boundary counts once every stage's snapshot is
+sealed, as each handle's ``seal`` says: an in-process snapshot at once,
+an actor's once it is in the object store, where it outlives the actor.
+A stage that dies before sealing its snapshot (the ``stage_seal`` chaos
+spec) loses that boundary; recovery then restores the survivors to the
+last sealed one, and the replay buffer keeps every step after it.
 
-Not ported yet (ROADMAP.md, Queue A item A3b): the actor and gang
-transport (``remote=True``), the ``stage_step`` chaos channel, the TPU
-preemption notice, the runtime's events, its ``runtime_mpmd_*`` gauges and
-the step profiler.
+The controller records the runtime's ``train.mpmd.*`` events and, while
+the runtime is initialised, sets the ``runtime_mpmd_*`` gauges. Not
+ported yet: the step profiler (``util/profiling.StepProfiler``, ROADMAP.md
+Queue A item A3d) and a gang's ``topology`` (the train executor's slice
+bundles, item A3c).
 """
 
 from __future__ import annotations
@@ -125,9 +140,9 @@ class StageDefinition:
             raise ValueError("a stage needs an optimizer factory")
 
 
-def block_stage_builders(cfg, weights: Dict[str, torch.Tensor],
-                         n_virtual: int, optimizer: Callable,
-                         loss_chunk: int = 256) -> List[Callable]:
+def block_stage_builders(cfg, weights, n_virtual: int, optimizer: Callable,
+                         loss_chunk: int = 256,
+                         device: Optional[str] = None) -> List[Callable]:
     """Builders of a decoder's blocks cut into ``n_virtual`` stages of
     ``cfg.n_layers / n_virtual`` blocks each (``models.BlockStage``), with
     the embedding and the unembedding outside the stages, as the JAX
@@ -137,7 +152,12 @@ def block_stage_builders(cfg, weights: Dict[str, torch.Tensor],
     unembedding of ``weights``, a model state_dict (``convert.init_params``),
     which stays fixed. Each build copies its blocks' weights out of
     ``weights``, so a stage rebuilt after a loss starts from them too
-    (then takes its snapshot)."""
+    (then takes its snapshot).
+
+    For actor stages ``weights`` may instead be the object ref of a host
+    (CPU) state_dict: each build then reads it from the object store in
+    the stage's process and copies only its own blocks (and, on the last
+    stage, the unembedding) to ``device`` (default ``"cuda"``)."""
     from ray_tpu_torch.models import BlockStage, stage_state_dict
     from ray_tpu_torch.parallel.train_step import chunked_cross_entropy
 
@@ -145,20 +165,31 @@ def block_stage_builders(cfg, weights: Dict[str, torch.Tensor],
         raise ValueError(f"{cfg.n_layers} blocks do not cut into "
                          f"{n_virtual} stages")
     per = cfg.n_layers // n_virtual
-    unembed = (weights["embed"].t() if cfg.tie_embeddings
-               else weights["unembed"]).to(cfg.dtype)
 
-    def loss_fn(y, targets):
-        return chunked_cross_entropy(y, unembed, targets, chunk=loss_chunk)[0]
+    def source():
+        """The state_dict and how a build copies a tensor out of it."""
+        if isinstance(weights, dict):
+            return weights, torch.Tensor.clone
+        import ray_tpu_torch
+        dev = torch.device(device or "cuda")
+        return ray_tpu_torch.get(weights), lambda v: v.to(dev, copy=True)
 
     def builder(vs):
+        w, place = source()
         stage = BlockStage(cfg, per, device="meta")
         stage.load_state_dict(
-            {k: v.clone() for k, v in
-             stage_state_dict(weights, vs * per, per).items()}, assign=True)
-        return StageDefinition(
-            module=stage, optimizer=optimizer,
-            loss_fn=loss_fn if vs == n_virtual - 1 else None)
+            {k: place(v) for k, v in
+             stage_state_dict(w, vs * per, per).items()}, assign=True)
+        loss_fn = None
+        if vs == n_virtual - 1:
+            table = (place(w["embed"]).t() if cfg.tie_embeddings
+                     else place(w["unembed"])).to(cfg.dtype)
+
+            def loss_fn(y, targets):
+                return chunked_cross_entropy(y, table, targets,
+                                             chunk=loss_chunk)[0]
+        return StageDefinition(module=stage, optimizer=optimizer,
+                               loss_fn=loss_fn)
     return [builder] * n_virtual
 
 
@@ -258,10 +289,16 @@ class MicrobatchReplayBuffer:
             if peak_live_buffers is not None else None
         self._steps: Dict[int, Any] = {}
 
-    def record(self, step: int, inputs: List[Any], targets: List[Any]):
+    def record(self, step: int, inputs: List[Any], targets: List[Any],
+               keep_after: Optional[int] = None):
+        """Hold ``step``'s microbatches. With ``keep_after`` (the last
+        boundary a recovery can restore), no step after it is evicted,
+        even past ``depth``: a boundary whose snapshots take longer than
+        a step to seal leaves recovery further back."""
         self._steps[step] = ([_as_host_tensor(x) for x in inputs],
                              [_as_host_tensor(t) for t in targets])
-        while len(self._steps) > self.depth:
+        while len(self._steps) > self.depth and (
+                keep_after is None or min(self._steps) <= keep_after):
             del self._steps[min(self._steps)]
 
     def budget(self) -> Dict[str, Any]:
@@ -593,9 +630,12 @@ class StageRuntime:
                     f"stage {self.stage_idx}: async checkpoint "
                     "failed") from err
 
-    def checkpoint_begin(self, step: int) -> bool:
+    def checkpoint_begin(self, step: int,
+                         on_sealed: Optional[Callable] = None) -> bool:
         """Start a step-boundary snapshot OFF the hot path: a background
-        thread makes the host copy, overlapping the next step's compute."""
+        thread makes the host copy, overlapping the next step's compute,
+        then hands it to ``on_sealed`` (an actor stage's durable shard
+        write)."""
         if step != self.step:
             raise RuntimeError(
                 f"stage {self.stage_idx}: checkpoint({step}) at "
@@ -611,6 +651,8 @@ class StageRuntime:
                 snap = self._snapshot_of(step, ready)
                 with self._ckpt_lock:
                     self._last_snapshot = snap
+                if on_sealed is not None:
+                    on_sealed(snap)
             except BaseException as e:  # noqa: B036 — raised at the barrier
                 self._ckpt_err = e
 
@@ -643,6 +685,13 @@ class StageRuntime:
         self._ckpt_barrier()
         with self._ckpt_lock:
             snap = self._last_snapshot
+        self.load_snapshot(snap)
+        return self.step
+
+    def restore(self, snap: Dict[str, Any]) -> int:
+        """Load a given snapshot (an older boundary than the stage's own
+        last one) after joining any in-flight copy; returns its step."""
+        self._ckpt_barrier()
         self.load_snapshot(snap)
         return self.step
 
@@ -729,17 +778,20 @@ def _build_definition(builder: Callable, stage_idx: int) -> StageDefinition:
     return defn
 
 
-def _load_chunk_snapshots(rts: List[StageRuntime], snapshot):
-    """Restore a host's runtimes from a snapshot: a single dict for the
-    plain one-chunk host, a list (one per virtual chunk, chunk order)
-    under interleaving."""
+def _restore_chunks(rts: List[StageRuntime], snapshot) -> int:
+    """Restore a host's runtimes from a boundary's snapshot: a single dict
+    for the plain one-chunk host, a list (one per virtual chunk, chunk
+    order) under interleaving. Returns the boundary step."""
     snaps = [snapshot] if isinstance(snapshot, dict) else list(snapshot)
     if len(snaps) != len(rts):
         raise ValueError(
             f"snapshot has {len(snaps)} chunk shards, host has "
             f"{len(rts)} virtual chunks")
-    for rt, snap in zip(rts, snaps):
-        rt.load_snapshot(snap)
+    bounds = {rt.restore(snap) for rt, snap in zip(rts, snaps)}
+    if len(bounds) != 1:
+        raise RuntimeError(f"virtual chunks restored to different "
+                           f"boundaries {sorted(bounds)}")
+    return bounds.pop()
 
 
 class _Now:
@@ -804,7 +856,7 @@ class LocalStageHandle:
                          n_stages=n_stages, n_microbatches=n_microbatches)
             for vs, b in chunk_builders]
         if snapshot is not None:
-            _load_chunk_snapshots(self._rts, snapshot)
+            _restore_chunks(self._rts, snapshot)
         self._marker = preempt_marker
         self._fail_at = fail_at
         self._dead = False
@@ -817,6 +869,12 @@ class LocalStageHandle:
             self._dead = True
             raise StageLostError(self.stage_idx,
                                  f"armed failure at step {step} {op}")
+        from ray_tpu_torch._private import rpc
+        try:
+            rpc._maybe_inject_failure("stage_step")
+        except rpc.RpcError as e:
+            self._dead = True
+            raise StageLostError(self.stage_idx, str(e)) from e
 
     def _call(self, fn, *args) -> _Now:
         try:
@@ -875,6 +933,14 @@ class LocalStageHandle:
         return _Later(lambda: [rt.checkpoint_result(step)
                                for rt in self._rts])
 
+    def seal(self, fut, timeout: Optional[float] = None):
+        """What restores this stage from a boundary's snapshot future once
+        it is sealed. An in-process snapshot cannot die with its stage, so
+        it is sealed at once: a deferred one stays deferred (resolving it
+        is the barrier, on the recovery path), a synchronous one is its
+        value."""
+        return fut if isinstance(fut, _Later) else fut.result()
+
     def rollback(self) -> _Now:
         def run():
             bounds = [rt.rollback() for rt in self._rts]
@@ -884,6 +950,9 @@ class LocalStageHandle:
                     f"to different boundaries {bounds}")
             return bounds[0]
         return self._if_alive(run)
+
+    def restore(self, snapshot) -> _Now:
+        return self._if_alive(lambda: _restore_chunks(self._rts, snapshot))
 
     def compile_counts(self) -> _Now:
         return self._call(lambda: [rt.compile_counts() for rt in self._rts])
@@ -895,14 +964,401 @@ class LocalStageHandle:
         return not self._dead
 
     def preempting(self) -> bool:
-        return (not self._dead and bool(self._marker)
-                and os.path.exists(self._marker))
+        if self._dead:
+            return False
+        if self._marker and os.path.exists(self._marker):
+            return True
+        from ray_tpu_torch._private.accelerators.gpu import \
+            check_preemption_notice
+        return check_preemption_notice()
+
+    def stop(self):
+        pass
 
     def kill(self):
         self._dead = True
 
     def fetch(self, fut, timeout: Optional[float] = None):
         return fut.result()
+
+
+# ------------------------------------------------------------- actor stages
+
+_KERNEL_WRAPPERS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv")
+
+
+def _kernel_launches() -> Dict[str, int]:
+    """This process's flash-kernel launch counters, by wrapper name (0
+    before the attention module is first imported)."""
+    import sys
+    ops = sys.modules.get("ray_tpu_torch.ops.attention")
+    return {n: int(getattr(ops, n).launches) if ops is not None else 0
+            for n in _KERNEL_WRAPPERS}
+
+
+class PipelineStageActor:
+    """Actor hosting one pipeline stage in its own worker process (with
+    ``num_gpus``, on the GPU the runtime assigned it: ``CUDA_VISIBLE_DEVICES``
+    is set before this constructor runs). Compute methods ride the
+    DEFAULT (ordered) concurrency group — dispatch order is execution
+    order, which the replay-determinism guarantee leans on; control
+    methods (ping/abort/rollback/...) declare the ``control`` group so
+    the controller can park or probe a stage while compute is queued.
+    Chaos: the ``stage_step`` injection SIGKILLs the process mid-step,
+    the ``stage_seal`` one before a boundary's snapshot is sealed
+    (``util.chaos.StageKiller``): the hardest deaths the recovery path
+    must absorb. Each apply reports the flash-kernel launches this
+    process made since the last step boundary (``launches``), which the
+    controller sums over the stages."""
+
+    def __init__(self, stage_idx: int, n_stages: int, n_microbatches: int,
+                 builder: Optional[Callable] = None,
+                 snapshot: Optional[Any] = None,
+                 preempt_marker: Optional[str] = None,
+                 chunk_builders: Optional[List[tuple]] = None):
+        if chunk_builders is None:
+            chunk_builders = [(stage_idx, builder)]
+        # the chaos spec is read from this actor's own environment (its
+        # runtime_env included), not from what the worker parsed before
+        # it became this actor
+        from ray_tpu_torch._private import rpc
+        rpc._CHAOS_SPEC = None
+        self._rts = [
+            StageRuntime(_build_definition(b, vs), stage_idx=vs,
+                         n_stages=n_stages, n_microbatches=n_microbatches)
+            for vs, b in chunk_builders]
+        if snapshot is not None:
+            _restore_chunks(self._rts, self._materialize(snapshot))
+        self._launch_base = _kernel_launches()
+        self._marker = preempt_marker
+        self._preempting = False
+        self._shard_writer = None
+        self._storage_path: Optional[str] = None
+        self._stop = threading.Event()
+        self._watch = threading.Thread(target=self._watch_loop,
+                                       name=f"stage-{stage_idx}-watch",
+                                       daemon=True)
+        self._watch.start()
+
+    @staticmethod
+    def _materialize(snapshot):
+        """Snapshots may arrive as object refs — per chunk or whole —
+        depending on the restore source."""
+        import ray_tpu_torch
+
+        def one(s):
+            return s if s is None or isinstance(s, dict) \
+                else ray_tpu_torch.get(s)
+        if isinstance(snapshot, (list, tuple)):
+            return [one(s) for s in snapshot]
+        return one(snapshot)
+
+    def _watch_loop(self):
+        from ray_tpu_torch._private.accelerators.gpu import \
+            check_preemption_notice
+        from ray_tpu_torch._private.config import cfg
+        while not self._stop.is_set():
+            try:
+                if (self._marker and os.path.exists(self._marker)) \
+                        or check_preemption_notice():
+                    self._preempting = True
+            except Exception:
+                pass   # rtlint: disable=RT004 — poll again next tick
+            if self._stop.wait(cfg.mpmd_health_poll_s):
+                return
+
+    def _chaos(self, channel: str = "stage_step"):
+        from ray_tpu_torch._private import rpc
+        try:
+            rpc._maybe_inject_failure(channel)
+        except rpc.RpcError:
+            # the chaos contract is a process DEATH mid-step, not a
+            # catchable exception: survivors must recover from silence
+            import signal
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def _launches_since_boundary(self) -> Dict[str, int]:
+        now = _kernel_launches()
+        out = {n: now[n] - self._launch_base[n] for n in now}
+        self._launch_base = now
+        return out
+
+    # ------------------------------------------------------------- compute
+    def forward(self, step, mb, x, target=None, chunk=0):
+        self._chaos()
+        return self._rts[chunk].forward(step, mb, x, target)
+
+    def backward(self, step, mb, gy=None, chunk=0):
+        self._chaos()
+        return self._rts[chunk].backward(step, mb, gy)
+
+    def apply_step(self, step):
+        metrics = [rt.apply_step(step) for rt in self._rts]
+        metrics[0]["launches"] = self._launches_since_boundary()
+        return metrics
+
+    def checkpoint(self, step):
+        """Synchronous boundary snapshot."""
+        self.checkpoint_begin(step)
+        return self.checkpoint_result(step)
+
+    def checkpoint_begin(self, step):
+        """Rides the ordered compute queue (so it lands exactly at the
+        step boundary) but only marks the boundary and hands the host
+        copy (and the durable shard write) to background threads — the
+        next step's compute is never behind a checkpoint write."""
+        for rt in self._rts:
+            rt.checkpoint_begin(step, on_sealed=self._sealed_hook(rt))
+        return True
+
+    def checkpoint_result(self, step):
+        """Barrier + return the per-chunk snapshots (control group: the
+        compute queue keeps draining while a caller waits here)."""
+        self._chaos("stage_seal")
+        return [rt.checkpoint_result(step) for rt in self._rts]
+
+    def _sealed_hook(self, rt: StageRuntime):
+        if not self._storage_path:
+            return None
+        if self._shard_writer is None:
+            from ray_tpu_torch.train.sharded_checkpoint import \
+                AsyncShardWriter
+            self._shard_writer = AsyncShardWriter()
+        writer, root, vs = self._shard_writer, self._storage_path, \
+            rt.stage_idx
+
+        def on_sealed(snap):
+            writer.submit(root, vs, snap)
+        return on_sealed
+
+    def set_storage_path(self, path: Optional[str]):
+        self._storage_path = path
+        return True
+
+    # ------------------------------------------------------------- control
+    def abort_step(self, step):
+        ok = all([rt.abort_step(step) for rt in self._rts])
+        self._launch_base = _kernel_launches()
+        return ok
+
+    def rollback(self):
+        # recovery is the shard-write barrier: a survivor's durable
+        # state must be consistent before replay resumes over it
+        if self._shard_writer is not None:
+            try:
+                self._shard_writer.barrier(timeout=60.0)
+            except RuntimeError:
+                import logging
+                logging.getLogger(__name__).warning(
+                    "stage %d: async shard write failed before rollback",
+                    self._rts[0].stage_idx, exc_info=True)
+        bounds = [rt.rollback() for rt in self._rts]
+        if len(set(bounds)) != 1:
+            raise RuntimeError(
+                f"virtual chunks rolled back to different boundaries "
+                f"{bounds}")
+        self._launch_base = _kernel_launches()
+        return bounds[0]
+
+    def restore(self, snapshot):
+        """Roll back to a given (older) boundary's snapshot, per chunk:
+        the controller's last boundary whose snapshots all reached the
+        object store, when this stage's own last one is newer."""
+        step = _restore_chunks(self._rts, self._materialize(snapshot))
+        self._launch_base = _kernel_launches()
+        return step
+
+    def compile_counts(self):
+        return [rt.compile_counts() for rt in self._rts]
+
+    def state_digest(self):
+        return [rt.state_digest() for rt in self._rts]
+
+    def trace_start(self):
+        """Start torch.profiler in this process (CUDA kernels are
+        recorded whichever thread launches them)."""
+        from torch.profiler import ProfilerActivity, profile
+        self._prof = profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        return True
+
+    def trace_stop(self):
+        """Stop the profiler; returns this process's device time by
+        kernel name, ``[(name, device_us, count)]``: kernels only, as an
+        operator's row repeats its kernels' time."""
+        from torch.autograd import DeviceType
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            if (e.device_type == DeviceType.CUDA and us > 0
+                    and not getattr(e, "is_user_annotation", False)):
+                rows.append((e.key, float(us), int(e.count)))
+        return rows
+
+    def memory_stats(self):
+        """This process's CUDA peak memory allocated (bytes; 0 on the
+        CPU) and its pid."""
+        dev = self._rts[0].device
+        peak = (torch.cuda.max_memory_allocated(dev)
+                if dev.type == "cuda" else 0)
+        return {"pid": os.getpid(), "peak_bytes": int(peak),
+                "device": str(dev)}
+
+    def ping(self):
+        return True
+
+    def preempting(self):
+        return self._preempting
+
+    def stop(self):
+        self._stop.set()
+        return True
+
+
+# control methods answer while compute is queued: tag the group on the
+# plain functions (actor.py reads __concurrency_group__ through
+# ray_tpu_torch.remote(), as @ray_tpu_torch.method(concurrency_group=...)).
+# checkpoint_result is control-tagged on purpose: it BLOCKS on the
+# background snapshot, and must not stall the ordered compute queue —
+# checkpoint_begin stays on the compute queue so the capture lands
+# exactly at the step boundary.
+for _name in ("abort_step", "rollback", "restore", "compile_counts",
+              "state_digest", "memory_stats", "trace_start", "trace_stop",
+              "ping", "preempting", "stop",
+              "set_storage_path", "checkpoint_result"):
+    getattr(PipelineStageActor, _name).__concurrency_group__ = "control"
+del _name
+
+
+class ActorStageHandle:
+    """Controller-side wrapper around a PipelineStageActor: methods
+    return ObjectRefs (activations and grads stay in the object store —
+    the controller passes refs between stages, never bytes)."""
+
+    def __init__(self, stage_idx: int, actor):
+        self.stage_idx = stage_idx
+        self.actor = actor
+
+    @classmethod
+    def provision(cls, stage_idx: int, n_stages: int, n_microbatches: int,
+                  builder: Optional[Callable] = None, snapshot=None,
+                  preempt_marker: Optional[str] = None,
+                  resources: Optional[Dict[str, float]] = None,
+                  storage_path: Optional[str] = None,
+                  chunk_builders: Optional[List[tuple]] = None,
+                  extra_options: Optional[Dict[str, Any]] = None
+                  ) -> "ActorStageHandle":
+        """Start one stage actor. ``resources`` takes the runtime's
+        resource names (``{"GPU": 0.5}`` shares one card with another
+        stage); ``extra_options`` are further actor options
+        (``runtime_env``, ``scheduling_strategy``)."""
+        import ray_tpu_torch
+        # one thread for the default group keeps it ordered (the JAX
+        # package's max_concurrency=4 gives the default group four
+        # threads, so an apply could run before the step's backwards)
+        opts: Dict[str, Any] = {
+            "max_concurrency": 1,
+            "concurrency_groups": {"control": 2},
+        }
+        if resources:
+            opts["resources"] = dict(resources)
+        if extra_options:
+            opts.update(extra_options)
+        actor = ray_tpu_torch.remote(PipelineStageActor).options(
+            **opts).remote(stage_idx, n_stages, n_microbatches, builder,
+                           snapshot, preempt_marker, chunk_builders)
+        h = cls(stage_idx, actor)
+        if storage_path:
+            h.fetch(actor.set_storage_path.remote(storage_path),
+                    timeout=60.0)
+        return h
+
+    def forward(self, step, mb, x, target=None, chunk=0):
+        return self.actor.forward.remote(step, mb, x, target, chunk)
+
+    def backward(self, step, mb, gy=None, chunk=0):
+        return self.actor.backward.remote(step, mb, gy, chunk)
+
+    def apply_step(self, step):
+        return self.actor.apply_step.remote(step)
+
+    def abort_step(self, step):
+        return self.actor.abort_step.remote(step)
+
+    def checkpoint(self, step):
+        return self.actor.checkpoint.remote(step)
+
+    def checkpoint_begin(self, step):
+        return self.actor.checkpoint_begin.remote(step)
+
+    def checkpoint_result(self, step):
+        return self.actor.checkpoint_result.remote(step)
+
+    def seal(self, ref, timeout: Optional[float] = None):
+        """The snapshot's ref once the snapshot is readable in the object
+        store, where it outlives the actor (None: not yet, ``timeout=None``
+        waits); StageLostError when the actor died before sealing it."""
+        import ray_tpu_torch
+        ready, _ = ray_tpu_torch.wait([ref], timeout=timeout)
+        if not ready:
+            return None
+        try:
+            ray_tpu_torch.get(ref, timeout=60.0)
+        except Exception as e:
+            raise StageLostError(self.stage_idx,
+                                 f"snapshot never sealed: {e}") from e
+        return ref
+
+    def rollback(self):
+        return self.actor.rollback.remote()
+
+    def restore(self, snapshot):
+        return self.actor.restore.remote(snapshot)
+
+    def compile_counts(self):
+        return self.actor.compile_counts.remote()
+
+    def state_digest(self):
+        return self.actor.state_digest.remote()
+
+    def memory_stats(self):
+        return self.actor.memory_stats.remote()
+
+    def ping(self, timeout: Optional[float] = 5.0) -> bool:
+        import ray_tpu_torch
+        try:
+            ray_tpu_torch.get(self.actor.ping.remote(), timeout=timeout)
+            return True
+        except Exception:
+            return False
+
+    def preempting(self) -> bool:
+        import ray_tpu_torch
+        try:
+            return bool(ray_tpu_torch.get(self.actor.preempting.remote(),
+                                          timeout=5.0))
+        except Exception:
+            return False
+
+    def stop(self):
+        """Stop the actor's watch thread (before a clean kill)."""
+        self.fetch(self.actor.stop.remote(), timeout=5.0)
+
+    def kill(self):
+        import ray_tpu_torch
+        try:
+            ray_tpu_torch.kill(self.actor)
+        except Exception:
+            pass   # rtlint: disable=RT004 — the actor may be gone
+
+    def fetch(self, ref, timeout: Optional[float] = None):
+        import ray_tpu_torch
+        return ray_tpu_torch.get(ref, timeout=timeout)
 
 
 # ------------------------------------------------------------- stage gangs
@@ -922,14 +1378,16 @@ class _GangFanout:
 
 
 class GangStageHandle:
-    """One pipeline stage as a GANG of replica members (in process: local
-    stage handles). Dispatch is gang-consistent: every compute op goes to
-    ALL members in the same order; rank 0's output is what the neighbour
-    stage consumes, the other ranks' outputs become shadow futures
-    drained at the step's apply barrier. State digests are gathered from
-    every rank and must agree bit for bit; checkpoints ship rank 0's
-    snapshot. The preemption/park/replay lifecycle is unchanged — the
-    gang fails, parks, restores and replays as a unit."""
+    """One pipeline stage as a GANG of replica members (local stage
+    handles in process, stage actors with ``provision``). Dispatch is
+    gang-consistent: every compute op goes to ALL members in the same
+    order; rank 0's output is what the neighbour stage consumes, the
+    other ranks' outputs become shadow futures drained at the step's
+    apply barrier. State digests are gathered from every rank and must
+    agree bit for bit; checkpoints ship rank 0's snapshot. The
+    preemption/park/replay lifecycle is unchanged — the gang fails,
+    parks, restores and replays as a unit (any dead rank: the stage is
+    lost and the whole gang is provisioned again)."""
 
     def __init__(self, stage_idx: int, members: List[Any]):
         if not members:
@@ -937,6 +1395,32 @@ class GangStageHandle:
         self.stage_idx = stage_idx
         self.members = list(members)
         self._shadow: List[tuple] = []
+
+    @classmethod
+    def provision(cls, stage_idx: int, n_stages: int, n_microbatches: int,
+                  chunk_builders: List[tuple], snapshot=None, *,
+                  gang_size: int, topology: Optional[str] = None,
+                  resources: Optional[Dict[str, float]] = None,
+                  preempt_marker: Optional[str] = None,
+                  storage_path: Optional[str] = None) -> "GangStageHandle":
+        """Provision a gang of stage actors, each scheduled by
+        ``resources`` alone."""
+        if topology:
+            raise NotImplementedError(
+                "a stage gang pinned to a slice topology needs the train "
+                "executor's slice bundles (train/backend_executor.py), "
+                "which are not ported yet (ROADMAP.md, Queue A item A3c)")
+        members = [
+            ActorStageHandle.provision(
+                stage_idx, n_stages, n_microbatches, None, snapshot,
+                # only rank 0 watches the notice channel; preemption of
+                # any other rank surfaces as a dead rank at the barrier
+                preempt_marker=preempt_marker if r == 0 else None,
+                resources=resources,
+                storage_path=storage_path if r == 0 else None,
+                chunk_builders=chunk_builders)
+            for r in range(gang_size)]
+        return cls(stage_idx, members)
 
     # ------------------------------------------------------------- compute
     def _fanout_compute(self, submit) -> Any:
@@ -986,6 +1470,19 @@ class GangStageHandle:
     def checkpoint_result(self, step):
         return self.members[0].checkpoint_result(step)
 
+    def seal(self, fut, timeout: Optional[float] = None):
+        if isinstance(fut, _GangFanout):
+            # a synchronous checkpoint: every rank took its snapshot, rank
+            # 0's leaves the gang
+            try:
+                for m, f in fut.items[1:]:
+                    m.fetch(f, timeout=timeout)
+            except Exception as e:
+                raise StageLostError(self.stage_idx,
+                                     f"a rank's snapshot failed: {e}") from e
+            fut = fut.items[0][1]
+        return self.members[0].seal(fut, timeout)
+
     def rollback(self):
         items = [(m, m.rollback()) for m in self.members]
 
@@ -996,6 +1493,10 @@ class GangStageHandle:
                     f"different boundaries {vals}")
             return vals[0]
         return _GangFanout(items, [], reduce)
+
+    def restore(self, snapshot):
+        items = [(m, m.restore(snapshot)) for m in self.members]
+        return _GangFanout(items, [], lambda vals: vals[0])
 
     def compile_counts(self):
         items = [(m, m.compile_counts()) for m in self.members]
@@ -1035,24 +1536,31 @@ class GangStageHandle:
 # -------------------------------------------------------------- controller
 
 class MPMDPipelineTrainer:
-    """Drives an S-stage MPMD pipeline over in-process stage handles:
-    schedule dispatch, step-boundary snapshots, and the stage-loss
-    lifecycle (park → rebuild → restore → replay → rejoin).
+    """Drives an S-stage MPMD pipeline: schedule dispatch, step-boundary
+    snapshots, and the stage-loss lifecycle (park → rebuild → restore →
+    replay → rejoin).
 
     stage_builders: one callable per VIRTUAL stage returning its
         :class:`StageDefinition`. With ``config.virtual_stages == v > 1``
         the V = len(builders) virtual stages fold onto S = V // v physical
         stage hosts in the interleaved wrap: virtual stage vs lives on
         host vs % S as chunk vs // S.
+    remote=True provisions one :class:`PipelineStageActor` per stage
+        (``ray_tpu_torch.init()`` first; ``stage_resources[s]`` are stage
+        s's actor resources, e.g. ``{"GPU": 0.5}``); remote=False runs the
+        stages in process.
     stage_gang_sizes[s] > 1 widens physical stage s into a
-        :class:`GangStageHandle` of that many in-process replicas.
+        :class:`GangStageHandle` of that many replicas (actors, or
+        in-process handles).
     provision_fn(stage_idx, snapshot) overrides stage provisioning
         entirely (tests inject failing handles through this)."""
 
     def __init__(self, stage_builders: List[Callable],
                  config: Optional[MPMDConfig] = None,
                  failure_config: Optional[FailureConfig] = None,
-                 *, stage_gang_sizes: Optional[List[int]] = None,
+                 *, remote: bool = False,
+                 stage_resources: Optional[List[Dict[str, float]]] = None,
+                 stage_gang_sizes: Optional[List[int]] = None,
                  provision_fn: Optional[Callable] = None,
                  marker_dir: Optional[str] = None):
         self.builders = list(stage_builders)
@@ -1070,6 +1578,8 @@ class MPMDPipelineTrainer:
                                 f"virtual_stages={v})" if v > 1 else ""))
         self.failure_config = failure_config or FailureConfig(
             max_failures=3, restart_policy="stage")
+        self.remote = remote
+        self.stage_resources = stage_resources or [None] * self.n_stages
         self.stage_gang_sizes = stage_gang_sizes or [1] * self.n_stages
         self._provision_fn = provision_fn
         self.schedule = make_schedule(self.config.schedule, self.n_stages,
@@ -1081,8 +1591,15 @@ class MPMDPipelineTrainer:
                                for ops in self.schedule])
         self.handles: List[Any] = []
         self.last_stage_metrics: List[List[Dict[str, Any]]] = []
-        self._snap_refs: Dict[int, Any] = {}   # stage -> snapshot/future
+        # the confirmed boundary: its step and, per stage, what restores
+        # the stage to it (a snapshot, a deferred one, or a store ref)
+        self._snap_refs: Dict[int, Any] = {}
         self._ckpt_step = 0
+        # (step, {stage: future}) of a boundary whose snapshots are not all
+        # sealed yet, and the step of the last snapshot the stages took
+        # (what their rollback returns to)
+        self._pending: Optional[tuple] = None
+        self._stage_snap_step = 0
         self._failures_left = self.failure_config.max_failures
         self.recoveries: List[Dict[str, Any]] = []
         self.history: List[Dict[str, Any]] = []
@@ -1110,6 +1627,21 @@ class MPMDPipelineTrainer:
         chunk_builders = [(vs, self.builders[vs])
                           for vs in self._chunk_indices(stage_idx)]
         gang = self.stage_gang_sizes[stage_idx]
+        if self.remote:
+            if gang > 1:
+                return GangStageHandle.provision(
+                    stage_idx, self.n_virtual, self.config.n_microbatches,
+                    chunk_builders, snapshot, gang_size=gang,
+                    resources=self.stage_resources[stage_idx],
+                    preempt_marker=self._markers[stage_idx],
+                    storage_path=self.config.storage_path)
+            return ActorStageHandle.provision(
+                stage_idx, self.n_virtual, self.config.n_microbatches,
+                None, snapshot,
+                preempt_marker=self._markers[stage_idx],
+                resources=self.stage_resources[stage_idx],
+                storage_path=self.config.storage_path,
+                chunk_builders=chunk_builders)
 
         def member(r):
             return LocalStageHandle(
@@ -1129,6 +1661,7 @@ class MPMDPipelineTrainer:
             return self
         self.handles = [self._provision(s) for s in range(self.n_stages)]
         self._checkpoint_all(0)
+        self._confirm_pending(timeout=60.0)
         return self
 
     def preempt_marker(self, stage_idx: int) -> Optional[str]:
@@ -1141,17 +1674,25 @@ class MPMDPipelineTrainer:
         """Run ``n_steps`` pipeline steps. ``data_fn(step)`` returns
         (inputs, targets): M first-stage input microbatches and M
         last-stage target microbatches. Returns the run summary."""
+        from ray_tpu_torch._private import events
         self.start()
-        step = 0
-        while step < n_steps:
-            step += 1
-            inputs, targets = data_fn(step)
-            self._check_shapes(inputs, targets)
-            self.replay.record(step, inputs, targets)
-            self._run_step_with_recovery(step, inputs, targets)
-            if step % self.config.checkpoint_every == 0:
-                self._checkpoint_all(step)
-            self._migrate_preempting(step)
+        with events.record_span("train.mpmd.fit", category="train",
+                                n_stages=self.n_stages,
+                                n_virtual=self.n_virtual,
+                                n_microbatches=self.config.n_microbatches,
+                                schedule=self.config.schedule):
+            step = 0
+            while step < n_steps:
+                step += 1
+                inputs, targets = data_fn(step)
+                self._check_shapes(inputs, targets)
+                self.replay.record(step, inputs, targets,
+                                   keep_after=self._ckpt_step)
+                self._run_step_with_recovery(step, inputs, targets)
+                if step % self.config.checkpoint_every == 0:
+                    self._checkpoint_all(step)
+                self._confirm_pending(timeout=0.0)
+                self._migrate_preempting(step)
         return self.summary()
 
     def _check_shapes(self, inputs, targets):
@@ -1191,7 +1732,7 @@ class MPMDPipelineTrainer:
             lost, cause = e.stages, e.cause
         while True:
             t_rec = time.perf_counter()
-            boundary = self._prepare_recovery(step, lost, cause)
+            boundary, restored = self._prepare_recovery(step, lost, cause)
             try:
                 replayed = self.replay.replayable_from(boundary)
                 for t in replayed:
@@ -1200,35 +1741,96 @@ class MPMDPipelineTrainer:
             except StageLostError as e:
                 lost, cause = e.stages, e.cause
                 continue
-            self.recoveries.append({
-                "step": step, "stages": list(lost), "cause": cause,
-                "boundary": boundary, "replayed_steps": list(replayed),
-                "steps_lost": len(replayed),
-                "recovery_s": round(time.perf_counter() - t_rec, 3)})
+            self._note_recovery(step, lost, cause, boundary, restored,
+                                replayed, time.perf_counter() - t_rec)
             return
+
+    def _note_recovery(self, step, lost, cause, boundary, restored,
+                       replayed, recovery_s):
+        from ray_tpu_torch._private import events
+        self.recoveries.append({
+            "step": step, "stages": list(lost), "cause": cause,
+            "boundary": boundary, "survivors_restored": restored,
+            "replayed_steps": list(replayed),
+            "steps_lost": len(replayed),
+            "recovery_s": round(recovery_s, 3)})
+        events.record_instant(
+            "train.mpmd.stage_rejoined", category="train", step=step,
+            stages=",".join(map(str, lost)), boundary=boundary,
+            steps_replayed=len(replayed),
+            recovery_ms=round(recovery_s * 1e3, 1))
 
     def _run_step(self, step, inputs, targets):
         """Dispatch one step's full schedule, then collect the per-stage
         apply barrier. Each history row holds the step's wall time, each
         physical stage's compute (its programs' device-synchronised time)
         and its idle share of the wall (``stage{s}_bubble_fraction``), and
-        the last stage's mean microbatch loss."""
+        the last stage's mean microbatch loss; with actor stages also the
+        flash-kernel launches the stage processes made in the step,
+        summed (``launches``)."""
+        from ray_tpu_torch._private import events
         t0 = time.perf_counter()
         apply_futs = self._dispatch(step, inputs, targets)
         metrics = self._collect_applies(step, apply_futs)
         wall = time.perf_counter() - t0
         self.last_stage_metrics = metrics
         row: Dict[str, Any] = {"step": step, "wall_s": round(wall, 6)}
+        total_compute = 0.0
+        launches: Dict[str, int] = {}
         for s, per_chunk in enumerate(metrics):
             comp = sum(m.get("compute_s", 0.0) for m in per_chunk)
+            total_compute += comp
             row[f"stage{s}_compute_s"] = round(comp, 6)
             row[f"stage{s}_bubble_fraction"] = round(
                 max(0.0, 1.0 - comp / wall), 4) if wall else 0.0
             for m in per_chunk:
                 if "loss" in m:
                     row["loss"] = m["loss"]
+                for k, n in m.get("launches", {}).items():
+                    launches[k] = launches.get(k, 0) + n
+        if launches:
+            row["launches"] = launches
         self.history.append(row)
+        self._emit_stage_gauges(row, wall, total_compute)
+        events.record_instant(
+            "train.mpmd.step", category="train", step=step,
+            wall_ms=round(wall * 1e3, 3),
+            **({"loss": row["loss"]} if "loss" in row else {}))
         return row
+
+    def _emit_stage_gauges(self, row, wall, total_compute):
+        """Per-stage compute/bubble/transfer attribution as
+        ``runtime_mpmd_*`` gauges, while the runtime is initialised (its
+        metrics pusher ships them to the GCS)."""
+        import ray_tpu_torch
+        if not ray_tpu_torch.is_initialized():
+            return
+        from ray_tpu_torch.util.metrics import Gauge
+        if not hasattr(self, "_stage_gauges"):
+            self._stage_gauges = {
+                "compute_ms": Gauge(
+                    "runtime_mpmd_stage_compute_ms",
+                    "per-stage on-device compute in the last step",
+                    tag_keys=("stage",)),
+                "bubble": Gauge(
+                    "runtime_mpmd_stage_bubble_fraction",
+                    "per-stage idle fraction of the last step wall",
+                    tag_keys=("stage",)),
+                "transfer_ms": Gauge(
+                    "runtime_mpmd_transfer_ms",
+                    "step wall not attributed to any stage's compute "
+                    "(activation transfer + dispatch + collectives)"),
+            }
+        for s in range(self.n_stages):
+            tags = {"stage": str(s)}
+            self._stage_gauges["compute_ms"].set(
+                row.get(f"stage{s}_compute_s", 0.0) * 1e3, tags=tags)
+            self._stage_gauges["bubble"].set(
+                row.get(f"stage{s}_bubble_fraction", 0.0), tags=tags)
+        # stages overlap in time, so Σ compute can exceed wall; clamp —
+        # the unclamped signal still lives in the per-stage gauges
+        self._stage_gauges["transfer_ms"].set(
+            max(0.0, wall - total_compute) * 1e3)
 
     def _dispatch(self, step, inputs, targets):
         """Run the schedule over the virtual-chunk dependency graph:
@@ -1294,35 +1896,71 @@ class MPMDPipelineTrainer:
     # ------------------------------------------------------- checkpointing
     def _checkpoint_all(self, step):
         """Step-boundary checkpoint of every stage. Async mode
-        (config.async_checkpoint) splits the protocol: fetch the cheap
-        ``checkpoint_begin`` acks (the host copy runs on each stage's
-        background thread), then store the ``checkpoint_result`` futures
-        UNRESOLVED — the barrier that waits for the snapshot moves to the
-        recovery path."""
+        (config.async_checkpoint) fetches the cheap ``checkpoint_begin``
+        acks (each stage makes its host copy on a background thread) and
+        keeps the ``checkpoint_result`` futures; sync mode keeps
+        ``checkpoint``'s. The boundary moves to ``step`` once every
+        stage's snapshot is sealed (``_confirm_pending``; each handle's
+        ``seal`` says when): an in-process snapshot at once, an actor's
+        once it is in the object store, which takes a large stage seconds
+        after the boundary. Until then recovery restores the last
+        confirmed boundary. A new checkpoint first waits for the pending
+        one."""
+        self._confirm_pending(timeout=None)
         if self.config.async_checkpoint:
             begun = [(s, h.checkpoint_begin(step))
                      for s, h in enumerate(self.handles)]
             for s, fut in begun:
                 self.handles[s].fetch(fut, timeout=60.0)
-            for s, h in enumerate(self.handles):
-                self._snap_refs[s] = h.checkpoint_result(step)
+            futs = {s: h.checkpoint_result(step)
+                    for s, h in enumerate(self.handles)}
         else:
-            futs = [h.checkpoint(step) for h in self.handles]
-            for s, fut in enumerate(futs):
-                self._snap_refs[s] = self.handles[s].fetch(fut)
+            futs = {s: h.checkpoint(step) for s, h in enumerate(self.handles)}
+        self._pending = (step, futs)
+        self._stage_snap_step = step
+        self._confirm_pending(
+            timeout=0.0 if self.config.async_checkpoint else None)
+
+    def _confirm_pending(self, timeout: Optional[float]) -> bool:
+        """Move the boundary to the pending checkpoint once every stage's
+        snapshot is sealed (``timeout=None``: wait for it). A stage that
+        died before sealing its snapshot drops the pending checkpoint;
+        the last confirmed boundary stays. Returns whether nothing is
+        pending any more."""
+        if self._pending is None:
+            return True
+        step, futs = self._pending
+        deadline = None if timeout is None else time.monotonic() + timeout
+        sealed = {}
+        for s, fut in futs.items():
+            left = (None if deadline is None
+                    else max(0.0, deadline - time.monotonic()))
+            try:
+                snap = self.handles[s].seal(fut, left)
+            except StageLostError:
+                self._pending = None    # this boundary is lost
+                return True
+            if snap is None:
+                return False
+            sealed[s] = snap
+        self._pending = None
+        self._snap_refs = sealed
         self._ckpt_step = step
+        return True
 
     def _resolve_snap(self, stage_idx: int):
-        """Materialize a stored snapshot entry (async mode keeps
-        _Later/_Now thunks; resolving one is the recovery-time barrier)."""
+        """What restores a stage to the confirmed boundary (a deferred
+        in-process snapshot is resolved here: the recovery-time
+        barrier)."""
         snap = self._snap_refs.get(stage_idx)
-        if snap is not None and hasattr(snap, "result"):
+        if isinstance(snap, _Later):
             snap = self._snap_refs[stage_idx] = snap.result()
         return snap
 
     def _restore_source(self, stage_idx: int):
-        """Recovery ladder for a replacement stage: the in-memory snapshot
-        first; the durable storage shard when it is gone."""
+        """Recovery ladder for a replacement stage: the confirmed
+        boundary's snapshot first; the durable storage shard when it is
+        gone."""
         snap = self._resolve_snap(stage_idx)
         if snap is not None:
             return snap
@@ -1338,11 +1976,12 @@ class MPMDPipelineTrainer:
 
     # ------------------------------------------------------------ recovery
     def _prepare_recovery(self, step, lost: List[int], cause: str = ""
-                          ) -> int:
+                          ) -> tuple:
         """Budget check → park survivors at the bounded barrier → rebuild
         lost stages from their snapshots → roll survivors back to the
         checkpoint boundary. Returns the boundary step the replay must
-        start after. Raises PipelineDegradedError when stage-level
+        start after, and whether the survivors were restored to it (their
+        own last snapshot was newer) rather than rolled back. Raises PipelineDegradedError when stage-level
         recovery cannot proceed (policy/budget/barrier)."""
         policy = self.failure_config.restart_policy
         if policy != "stage":
@@ -1355,6 +1994,10 @@ class MPMDPipelineTrainer:
                 f"exhausted (max_failures="
                 f"{self.failure_config.max_failures})")
         self._failures_left -= 1
+        from ray_tpu_torch._private import events
+        events.record_instant(
+            "train.mpmd.stage_lost", category="train", step=step,
+            stages=",".join(map(str, lost)), cause=cause[:200])
         time.sleep(self.failure_config.restart_backoff_s)
 
         # 1. park survivors at the bounded-deadline barrier
@@ -1374,21 +2017,32 @@ class MPMDPipelineTrainer:
                 f"{self.config.barrier_deadline_s}s park barrier after "
                 f"stage {lost} loss — degrading to job-level restart")
 
+        # a pending boundary counts if every snapshot of it was sealed (a
+        # lost stage's either was or failed): wait out the survivors'
+        self._confirm_pending(timeout=self.config.barrier_deadline_s)
+        self._pending = None
+
         # 2. rebuild lost stages from their snapshots
         for s in lost:
             self.handles[s].kill()
             self.handles[s] = self._provision(s, self._restore_source(s))
 
-        # 3. roll surviving stages back to the checkpoint boundary
+        # 3. roll surviving stages back to the checkpoint boundary: their
+        # own last snapshot, or, when that boundary was never sealed, the
+        # confirmed one
         boundary = self._ckpt_step
-        roll = [(s, self.handles[s].rollback()) for s in survivors]
+        restored = self._stage_snap_step != boundary
+        roll = [(s, self.handles[s].restore(self._resolve_snap(s))
+                 if restored else self.handles[s].rollback())
+                for s in survivors]
         for s, fut in roll:
             got = self.handles[s].fetch(fut, timeout=60.0)
             if got != boundary:
                 raise PipelineDegradedError(
                     f"stage {s} rolled back to step {got}, controller "
                     f"checkpoint boundary is {boundary}")
-        return boundary
+        self._stage_snap_step = boundary
+        return boundary, restored
 
     # --------------------------------------------------- graceful migration
     def _migrate_preempting(self, step):
@@ -1399,7 +2053,11 @@ class MPMDPipelineTrainer:
                       if h.preempting()]
         if not preempting:
             return
+        from ray_tpu_torch._private import events
         self._checkpoint_all(step)
+        self._confirm_pending(timeout=None)
+        if self._ckpt_step != step:
+            return     # a stage died unsealed: the next step recovers it
         for s in preempting:
             old = self.handles[s]
             self.handles[s] = self._provision(s, self._resolve_snap(s))
@@ -1409,6 +2067,9 @@ class MPMDPipelineTrainer:
                     os.remove(self._markers[s])
                 except FileNotFoundError:
                     pass
+            events.record_instant(
+                "train.mpmd.stage_migrated", category="train", step=step,
+                stage=s)
 
     # ------------------------------------------------------------- queries
     def _flatten_virtual(self, per_stage: List[Any]) -> List[Any]:
@@ -1444,7 +2105,21 @@ class MPMDPipelineTrainer:
                for s, f in enumerate(futs)]
         return self._flatten_virtual(got)
 
+    def memory_stats(self) -> List[Dict[str, Any]]:
+        """Each actor stage process's pid and CUDA peak memory allocated
+        (``peak_bytes``), one entry per actor (gang members included)."""
+        out = []
+        for h in self.handles:
+            for m in getattr(h, "members", [h]):
+                out.append(m.fetch(m.memory_stats(), timeout=30.0))
+        return out
+
     def shutdown(self):
         for h in self.handles:
-            h.kill()
+            for m in getattr(h, "members", [h]):
+                try:
+                    m.stop()
+                except Exception:
+                    pass   # rtlint: disable=RT004 — teardown best-effort
+                m.kill()
         self.handles = []

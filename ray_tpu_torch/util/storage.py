@@ -1,15 +1,17 @@
-"""URI-addressed storage for the pipeline trainer's stage shards.
+"""URI-addressed storage for the pipeline trainer's stage shards, the
+node manager's object spilling and the GCS's external store.
 
-Counterpart of the part of ``ray_tpu/util/storage.py`` that checkpoints
-use: plain paths and ``file://`` map to the local filesystem through the
-standard library; any other scheme (gs://, s3://, memory://, ...)
-resolves through fsspec, imported only when such a URI is used.
+Counterpart of ``ray_tpu/util/storage.py`` (without its directory
+upload and download): plain paths and ``file://`` map to the local
+filesystem through the standard library; any other scheme (gs://, s3://,
+memory://, ...) resolves through fsspec, imported only when such a URI
+is used.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import List, Tuple
 
 
 def _split(uri: str) -> Tuple[str, str]:
@@ -25,6 +27,18 @@ def _split(uri: str) -> Tuple[str, str]:
         return "", "/" + uri[len("file:"):].lstrip("/")
     return "", uri
 
+
+
+def validate_root(uri: str, what: str = "storage") -> str:
+    """Validate a spill/checkpoint/persist root URI: local paths must be
+    absolute (a relative root silently writes into whatever CWD the
+    daemon happens to have). Returns the URI unchanged."""
+    scheme, path = _split(uri)
+    if not scheme and not os.path.isabs(path):
+        raise ValueError(
+            f"{what} root {uri!r} resolves to the relative local path "
+            f"{path!r}; use an absolute path or a scheme:// URI")
+    return uri
 
 def is_remote(uri: str) -> bool:
     return _split(uri)[0] != ""
@@ -76,3 +90,37 @@ def read_bytes(uri: str) -> bytes:
     fs, p = _fs(uri)
     with fs.open(p, "rb") as f:
         return f.read()
+
+
+def exists(uri: str) -> bool:
+    scheme, path = _split(uri)
+    if not scheme:
+        return os.path.exists(path)
+    fs, p = _fs(uri)
+    return fs.exists(p)
+
+
+def delete(uri: str) -> bool:
+    scheme, path = _split(uri)
+    try:
+        if not scheme:
+            os.unlink(path)
+        else:
+            fs, p = _fs(uri)
+            fs.rm(p)
+        return True
+    except (OSError, FileNotFoundError):
+        return False
+
+
+def listdir(uri: str) -> List[str]:
+    """Child names (not full paths); empty list if missing."""
+    scheme, path = _split(uri)
+    try:
+        if not scheme:
+            return sorted(os.listdir(path))
+        fs, p = _fs(uri)
+        return sorted(x.rstrip("/").rsplit("/", 1)[-1]
+                      for x in fs.ls(p, detail=False))
+    except (OSError, FileNotFoundError):
+        return []

@@ -1,8 +1,17 @@
 """The PyTorch port stands alone: no module of ray_tpu_torch, and not
-chip_smoke.py, imports JAX, flax, optax or anything of ray_tpu."""
+chip_smoke.py, imports JAX, flax, optax or anything of ray_tpu. And the
+two runtimes never meet: no string of the port names a ray_tpu module
+(a launch string such as ``-m ray_tpu._private.worker_main`` would start
+the JAX package's worker) or a ``RAY_TPU_`` environment variable of the
+JAX package's, the port's control plane imports no torch, and every
+process of a port session runs a ray_tpu_torch module."""
 
 import ast
+import os
+import re
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ray_tpu")
@@ -68,3 +77,133 @@ def test_every_module_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _port_files():
+    files = sorted((ROOT / "ray_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    return files
+
+
+def _strings(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            yield node.lineno, node.value
+
+
+# a ray_tpu module by dotted name, a `-m ray_tpu...` launch that is not
+# the port's, and an env name of the JAX package's (RAY_TPU_ without
+# TORCH_)
+_JAX_MODULE = re.compile(r"\bray_tpu\.[A-Za-z_]|-m\s+ray_tpu(?!_torch)")
+_JAX_ENV = re.compile(r"\bRAY_TPU_(?!TORCH_)")
+
+
+@pytest.mark.parametrize("pattern", [_JAX_MODULE, _JAX_ENV],
+                         ids=["module", "env"])
+def test_port_strings_never_name_the_jax_runtime(pattern):
+    bad = [f"{f.relative_to(ROOT)}:{line}: {s[:80]!r}"
+           for f in _port_files() for line, s in _strings(f)
+           if pattern.search(s)]
+    assert not bad, bad
+
+
+def test_name_rules_catch_the_reference_launch_strings():
+    """The rules above flag what the JAX package's runtime spawns and
+    reads (so a copy that kept them would fail)."""
+    launch = [s for _, s in _strings(ROOT / "ray_tpu/_private/node_manager.py")
+              if _JAX_MODULE.search(s)]
+    assert "ray_tpu._private.worker_main" in launch
+    env = [s for _, s in _strings(ROOT / "ray_tpu/__init__.py")
+           if _JAX_ENV.search(s)]
+    assert "RAY_TPU_ADDRESS" in env
+
+
+CONTROL_PLANE = ("ray_tpu_torch/_private/gcs.py",
+                 "ray_tpu_torch/_private/node_manager.py",
+                 *sorted(str(p.relative_to(ROOT)) for p in
+                         (ROOT / "ray_tpu_torch/_private/accelerators")
+                         .glob("*.py")))
+
+
+def test_control_plane_imports_no_torch():
+    """The GCS, the node manager and GPU detection import no torch, in
+    their source and in a fresh interpreter (importing ray_tpu_torch
+    itself must not pull it in either)."""
+    import subprocess
+    import sys
+    bad = [f"{f}: {name}" for f in CONTROL_PLANE
+           for name in _imports(ROOT / f) if name.split(".")[0] == "torch"]
+    assert not bad, bad
+    mods = [f[:-3].replace("/", ".") for f in CONTROL_PLANE]
+    code = ("import importlib, sys\n"
+            "import ray_tpu_torch\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from ray_tpu_torch._private.accelerators import "
+            "detect_node_accelerators\n"
+            "detect_node_accelerators()\n"
+            "sys.exit(1 if 'torch' in sys.modules else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _descendants(root_pid):
+    children = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        children.setdefault(ppid, []).append(int(pid))
+    out, todo = [], [root_pid]
+    while todo:
+        for c in children.get(todo.pop(), []):
+            out.append(c)
+            todo.append(c)
+    return out
+
+
+def test_session_processes_run_port_modules():
+    """After init() on the CPU (and a task and an actor, so workers
+    exist), every process the session started (every descendant of this
+    process whose command line carries the session's name) runs a
+    ray_tpu_torch module: the GCS, the node manager and the workers."""
+    import ray_tpu_torch as rt
+    rt.init(num_cpus=2, object_store_memory=64 * 1024 * 1024)
+    session = rt._context.node.session_name.encode()
+    try:
+        @rt.remote
+        def f():
+            return os.getpid()
+
+        @rt.remote
+        class A:
+            def pid(self):
+                return os.getpid()
+
+        a = A.remote()
+        worker_pids = {rt.get(f.remote()), rt.get(a.pid.remote())}
+        cmds = {}
+        for pid in _descendants(os.getpid()):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                    cmd = fh.read().split(b"\0")
+            except OSError:
+                continue
+            if session in cmd:
+                cmds[pid] = cmd
+        mods = {pid: c[c.index(b"-m") + 1].decode() if b"-m" in c else ""
+                for pid, c in cmds.items()}
+        assert worker_pids <= set(mods)
+        started = {m for m in mods.values()}
+        assert {"ray_tpu_torch._private.gcs",
+                "ray_tpu_torch._private.node_manager",
+                "ray_tpu_torch._private.worker_main"} <= started, mods
+        assert all(m.startswith("ray_tpu_torch.") for m in mods.values()), \
+            mods
+    finally:
+        rt.shutdown()
