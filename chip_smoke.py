@@ -154,13 +154,42 @@ Phases, each of which must pass (any failure exits non-zero):
     /dev/shm/raytpu_torch_* file may remain.
 15. A JSON line of the kernels (with each one's TFLOP/s, its share of the
     bound, whether it runs on the tensor cores and its launches on the
-    mesh's, the pipeline's and the actors' paths), the card line again,
-    and last the result.
+    mesh's, the pipeline's, the actors' and Serve's paths), the card line
+    again, and last the result. It is printed after phase 16.
+16. Serve on the card (ray_tpu_torch.serve, on a fresh runtime with a
+    64 GiB store: every part's weights fit at once). (a)
+    serve.start(http_port=0) and serve.run of an
+    LLMDeployment of tpu-7b at full width and depth on a num_gpus=1
+    replica (phase 4's engine: 8 slots of 1024, chunk 128, budget 256;
+    params_fn phase 3's seeded init on the replica's card): the replica's
+    GPU ids must equal its mask "0", params_fn must run once and publish
+    the weights into the store; the replica's start, the publish and the
+    time to the first answer over HTTP are printed. (b) Phase 4's six
+    requests at once, over HTTP (streamed NDJSON read by urllib) and over
+    a streaming handle, then through the in-process engine on the same
+    mix: each stream held against a one-shot forward as in phase 4; TTFT
+    and TPOT per request as each client saw them, and the replica's
+    serve_llm_ttft_ms and serve_llm_tpot_ms from the /metrics aggregate.
+    (c) Two replicas at num_gpus 0.5 built together, tpu-7b's width cut
+    to 8 layers in fp32 (a resumed stream re-prefills the tokens already
+    delivered, and a bf16 random model's logits tie): one runs params_fn
+    and publishes, the other reads the weights from the store; params_fn
+    must have run once. (d) ServeReplicaKiller kills the busy one of them
+    mid-stream: the stream resumes on the survivor and must equal an
+    uninterrupted stream, and is held against a one-shot forward. (e)
+    build_disagg_app with one prefill and one decode replica at num_gpus
+    0.5 (8 layers, bf16): a 512-token prompt is prefilled on the prefill
+    tier and its bf16 spans cross the store into the decode tier, whose
+    greedy tokens must equal a colocated LLMDeployment's; the span bytes
+    and dtypes and the hand-off are printed. (f) serve.shutdown() and
+    shutdown() must leave no process or arena of the session. Engines
+    attend through the cache: phase 16 launches no flash kernel, in the
+    smoke's own process or in a replica.
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
 Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
-9, 10, 12, each part of 13) and read just after it; phase 14's stage
+9, 10, 12, each part of 13, 16 (b)) and read just after it; phase 14's stage
 actors are fresh processes whose counts start at 0, and the trainer sums
 what each reports per step; launches made to compare or time a
 kernel (2, 5, the remat checks of 7 and 10, 11, phase 12's no-mesh
@@ -2538,6 +2567,17 @@ def runtime_pipeline(models, parallel, train, ops, card, in_process,
     return total
 
 
+def heartbeat_gap(rt, what):
+    """Print the longest heartbeat silence the GCS saw from the node in
+    this session, beside the silence after which it declares the node
+    dead."""
+    from ray_tpu_torch._private.config import cfg
+    gap = max(n["max_heartbeat_gap_s"] for n in rt.nodes())
+    print(f"{what}: the longest heartbeat silence the GCS saw from the "
+          f"node {gap:.3f} s (a node is dead after "
+          f"{cfg.node_death_timeout_s} s)", flush=True)
+
+
 def run_runtime(models, parallel, train, ops, card, in_process):
     """Phase 14: the runtime core on the card. Returns the flash launches
     counted in the stage actors of (c) and (d)."""
@@ -2555,6 +2595,7 @@ def run_runtime(models, parallel, train, ops, card, in_process):
         runtime_objects(rt, card)
         counts = runtime_pipeline(models, parallel, train, ops, card,
                                   in_process)
+        heartbeat_gap(rt, "runtime")
     finally:
         rt.shutdown()
     deadline = time.monotonic() + 30
@@ -2572,6 +2613,624 @@ def run_runtime(models, parallel, train, ops, card, in_process):
     if left or shm:
         fail("the runtime left processes or shared-memory files behind")
     return counts
+
+
+# ------------------------------------------------------------- phase 16
+
+def _serve_classes(inference):
+    """LLMDeployment and the disaggregated decode tier with what phase 16
+    reads from inside a replica: its GPU ids and mask, its construction
+    time, how its weights were resolved, its flash launches, the requests
+    it admitted, and (decode tier) each KV hand-off's time. Made here, in
+    a function, so the runtime ships them by value."""
+    import threading
+
+    from ray_tpu_torch.serve.disagg import DisaggLLMDeployment
+
+    class Probe:
+        def _start_probe(self):
+            self._t_init = time.perf_counter()
+            self._submits = []
+
+        def _end_probe(self):
+            from ray_tpu_torch.serve import weights
+            self.init_s = time.perf_counter() - self._t_init
+            self.weights = dict(weights.last_resolve)
+
+        def probe(self):
+            import sys
+
+            import ray_tpu_torch as rt
+            ops = sys.modules.get("ray_tpu_torch.ops.attention")
+            launches = {name: getattr(ops, fn).launches for name, fn in (
+                ("flash_fwd", "flash_attention_fwd"),
+                ("flash_bwd_dq", "flash_attention_bwd_dq"),
+                ("flash_bwd_dkv", "flash_attention_bwd_dkv"))} if ops else {}
+            return {"ids": rt.get_gpu_ids(),
+                    "mask": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "device": str(self.engine.device), "pid": os.getpid(),
+                    "init_s": self.init_s, "weights": self.weights,
+                    "launches": launches}
+
+        def push_metrics(self):
+            from ray_tpu_torch.util import metrics
+            return metrics.push_once()
+
+        def _submit_request(self, prompt_tokens, max_new_tokens, *args):
+            self._submits.append((list(prompt_tokens), int(max_new_tokens)))
+            return super()._submit_request(prompt_tokens, max_new_tokens,
+                                           *args)
+
+        def submitted(self):
+            """(prompt tokens, max_new_tokens) of each admitted request."""
+            return list(self._submits)
+
+    class SmokeLLM(Probe, inference.LLMDeployment):
+        def __init__(self, *args, **kwargs):
+            self._start_probe()
+            super().__init__(*args, **kwargs)
+            self._end_probe()
+
+    class SmokeDecode(Probe, DisaggLLMDeployment):
+        def __init__(self, *args, **kwargs):
+            self._start_probe()
+            super().__init__(*args, **kwargs)
+            self._end_probe()
+            self._handoffs = []
+            self._lock = threading.Lock()
+
+        def _submit_request(self, *args, **kwargs):
+            imports = self.engine.kv_imports
+            t0 = time.perf_counter()
+            handle = super()._submit_request(*args, **kwargs)
+            with self._lock:
+                self._handoffs.append({
+                    "seconds": time.perf_counter() - t0,
+                    "imports": self.engine.kv_imports - imports})
+            return handle
+
+        def handoff_info(self):
+            def counter(m):
+                return {str(dict(tags)): v
+                        for tags, v in m._snapshot()["samples"]}
+            return {"admissions": list(self._handoffs),
+                    "stats": self.engine.stats(),
+                    "handoffs": counter(self._m_handoffs),
+                    "bytes": counter(self._m_handoff_bytes),
+                    "tokens": counter(self._m_handoff_tokens)}
+
+    return SmokeLLM, SmokeDecode
+
+
+def _params_fn(cfg, marks, device):
+    """A params_fn for a replica: phase 3's seeded init on the replica's
+    card, leaving a line in ``marks`` each time it runs."""
+    def params_fn():
+        import torch as _torch
+
+        from ray_tpu_torch.models import init_params
+        with open(marks, "a") as f:
+            f.write(f"{os.getpid()}\n")
+        return init_params(cfg, _torch.Generator(device=device)
+                           .manual_seed(0), device)
+    return params_fn
+
+
+def _runs(path):
+    try:
+        with open(path) as f:
+            return len(f.read().split())
+    except FileNotFoundError:
+        return 0
+
+
+def _seeded_model(models, cfg, device):
+    model = models.TransformerLM(cfg, device="meta")
+    model.load_state_dict(models.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device),
+        assign=True)
+    sync(device)
+    return model
+
+
+def _http_stream(url, body, out, key):
+    """POST one request with a streamed response, read by urllib line by
+    line (one NDJSON line per token); records the tokens and the time of
+    each, from the moment the request was sent."""
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/json", "X-RayTPU-Stream": "1"})
+    t0 = time.perf_counter()
+    toks, times = [], []
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status = resp.status
+            for line in resp:
+                if line.strip():
+                    toks.append(json.loads(line))
+                    times.append(time.perf_counter() - t0)
+    except Exception as e:   # recorded and failed on by the caller
+        status = f"{type(e).__name__}: {e}"
+    out[key] = {"status": status, "tokens": toks, "times": times}
+
+
+def _handle_stream(handle, prompt, n, out, key):
+    t0 = time.perf_counter()
+    toks, times = [], []
+    for tok in handle.options(stream=True).remote(prompt, max_new_tokens=n):
+        toks.append(tok)
+        times.append(time.perf_counter() - t0)
+    out[key] = {"status": 200, "tokens": toks, "times": times}
+
+
+def _concurrently(fn, args_list):
+    import threading
+    out = {}
+    threads = [threading.Thread(target=fn, args=(*args, out, i))
+               for i, args in enumerate(args_list)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return [out.get(i) for i in range(len(args_list))]
+
+
+def _ttft_tpot(times):
+    """TTFT and mean time per output token after the first, in ms."""
+    tpot = ((times[-1] - times[0]) / (len(times) - 1) * 1e3
+            if len(times) > 1 else float("nan"))
+    return round(times[0] * 1e3, 2), round(tpot, 3)
+
+
+def _llm_metrics(rt):
+    """serve_llm_ttft_ms and serve_llm_tpot_ms from the /metrics text (the
+    GCS's aggregate of every process's push, as render_prometheus renders
+    it): {name: (sum, count)} summed over the processes."""
+    from ray_tpu_torch.util.metrics import render_prometheus
+    text = render_prometheus(rt._get_worker().gcs_call("get_metrics"))
+    out = {}
+    for name in ("serve_llm_ttft_ms", "serve_llm_tpot_ms"):
+        s = c = 0.0
+        for line in text.splitlines():
+            if line.startswith(f"{name}_sum"):
+                s += float(line.split()[-1])
+            elif line.startswith(f"{name}_count"):
+                c += float(line.split()[-1])
+        out[name] = (s, c)
+    return out
+
+
+def _metric_means(before, after):
+    out = {}
+    for name in after:
+        ds = after[name][0] - before.get(name, (0.0, 0.0))[0]
+        dc = after[name][1] - before.get(name, (0.0, 0.0))[1]
+        out[name] = (round(ds / dc, 3) if dc else None, int(dc))
+    return out
+
+
+def _push_all(rt, handle):
+    for r in handle._router.replicas:
+        rt.get(r.handle_request.remote("push_metrics", (), {}), timeout=60)
+
+
+def _replicas(handle, n, timeout_s=900):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        handle._router.refresh(force=True)
+        if len(handle._router.replicas) >= n:
+            return list(handle._router.replicas)
+        time.sleep(0.2)
+    fail(f"serve: {n} replicas did not come up in {timeout_s} s")
+
+
+def _delete_app(rt, serve, app, device, timeout_s=300):
+    """serve.delete, then wait until the app's GPU claims are released (a
+    replica the controller was replacing may still be coming up)."""
+    serve.delete(app)
+    release(device)
+    if device != "cuda":
+        return
+    deadline = time.monotonic() + timeout_s
+    while rt.available_resources().get("GPU", 0.0) < 1.0:
+        if time.monotonic() > deadline:
+            fail(f"serve: the card's GPU claims were not released after "
+                 f"deleting {app!r}: {rt.available_resources()}")
+        time.sleep(0.2)
+
+
+def _probe_all(rt, replicas):
+    return [rt.get(r.handle_request.remote("probe", (), {}), timeout=900)
+            for r in replicas]
+
+
+def serve_start_and_requests(rt, serve, models, inference, ops, card, cls,
+                             marks, device, name, engine, lens, new):
+    """Phase 16 (a) and (b): one replica with the whole card serves
+    ``name`` at full width and depth; phase 4's requests over HTTP and
+    over a streaming handle, all at once, each stream held against a
+    one-shot forward, beside the in-process engine on the same mix."""
+    cfg = models.MODEL_REGISTRY[name]
+    gpus = {"num_gpus": 1} if device == "cuda" else {}
+    t0 = time.perf_counter()
+    serve.start(http_port=0)
+    start_s = time.perf_counter() - t0
+    (addr,) = [p["http"] for p in serve.proxies().values()]
+    dep = serve.deployment(cls, name="llm", ray_actor_options=gpus)
+    t0 = time.perf_counter()
+    handle = serve.run(dep.bind(name, params_fn=_params_fn(cfg, marks,
+                                                           device),
+                                device=device, **engine),
+                       name="llm", route_prefix="/")
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens]
+    (info,) = _probe_all(rt, _replicas(handle, 1))   # built
+    ready_s = time.perf_counter() - t0
+    first = {}
+    _http_stream(f"http://{addr}/", {"prompt_tokens": [1, 2, 3],
+                                     "max_new_tokens": 1}, first, 0)
+    first_s = time.perf_counter() - t0
+    w = info["weights"]
+    print(f"serve (a): proxy up at {addr} in {start_s:.2f} s; replica pid "
+          f"{info['pid']} GPU ids {info['ids']} mask {info['mask']!r} on "
+          f"{info['device']}; replica ready {ready_s:.2f} s after serve.run "
+          f"(its worker's start, imports and CUDA context, then the "
+          f"LLMDeployment construction {info['init_s']:.2f} s, of which "
+          f"params_fn "
+          f"{w.get('load_s', float('nan')):.2f} s and the weights' publish "
+          f"into the store {w.get('publish_s', float('nan')):.2f} s (source "
+          f"{w.get('source')}, "
+          f"{models.count_params(models.TransformerLM(cfg, device='meta')) * 2 / 1e9:.2f}"
+          f" GB); first answer over HTTP {first_s:.2f} s after serve.run "
+          f"(status {first[0]['status']}) [{card}]", flush=True)
+    if first[0]["status"] != 200 or len(first[0]["tokens"]) != 1:
+        fail(f"serve: the first HTTP answer was {first[0]}")
+    if device == "cuda" and (info["ids"] != ["0"] or info["mask"] != "0"):
+        fail(f"serve: a num_gpus=1 replica got ids {info['ids']} and mask "
+             f"{info['mask']!r}, want ['0'] and '0'")
+    if info["ids"] != ([info["mask"]] if info["mask"] else []):
+        fail(f"serve: the replica's GPU ids {info['ids']} are not its mask "
+             f"{info['mask']!r}")
+    if _runs(marks) != 1 or w.get("source") != "loader":
+        fail(f"serve: params_fn ran {_runs(marks)} times, source "
+             f"{w.get('source')}; want once, through the loader")
+
+    # (b) the six requests at once: over HTTP, over a handle, over HTTP
+    # again (the order's share of a difference shows between the two
+    # HTTP runs)
+    reqs = [(p.tolist(), n) for p, n in zip(prompts, new)]
+
+    def over_http(p, n, out, i):
+        _http_stream(f"http://{addr}/", {"prompt_tokens": p,
+                                          "max_new_tokens": n}, out, i)
+
+    def over_a_handle(p, n, out, i):
+        _handle_stream(handle, p, n, out, i)
+    zero_counts(ops)
+    results, metrics = [], []
+    for what, fn in (("HTTP", over_http), ("handle", over_a_handle),
+                     ("HTTP, again", over_http)):
+        _push_all(rt, handle)
+        before = _llm_metrics(rt)
+        t0 = time.perf_counter()
+        runs = _concurrently(fn, reqs)
+        wall = time.perf_counter() - t0
+        _push_all(rt, handle)
+        metrics.append(_metric_means(before, _llm_metrics(rt)))
+        results.append((what, runs, wall))
+    for what, runs, _ in results:
+        for i, (r, n) in enumerate(zip(runs, new)):
+            if r is None or r["status"] != 200 or len(r["tokens"]) != n:
+                fail(f"serve (b): {what} request {i} gave "
+                     f"{None if r is None else (r['status'], len(r['tokens']))}"
+                     f", want 200 and {n} tokens")
+
+    # the same mix in process, on a model from the same seed, after a
+    # one-token warm-up as the replica had (its first HTTP answer)
+    model = _seeded_model(models, cfg, device)
+    eng = inference.InferenceEngine(
+        model, inference.EngineConfig(
+            n_slots=engine["n_slots"], max_len=engine["max_len"],
+            prefill_chunk=engine["prefill_chunk"],
+            prefill_budget=engine["prefill_budget"]),
+        device=device, seed=0).start()
+    eng.submit([1, 2, 3], max_new_tokens=1).tokens()
+    sync(device)
+    inproc = []
+    for what in ("in process", "in process, again"):
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, new)]
+        local = [h.tokens() for h in hs]
+        inproc.append((what, hs, local, time.perf_counter() - t0))
+    eng.stop()
+    launches = read_counts(ops)
+    (info,) = _probe_all(rt, handle._router.replicas)
+    for (what, runs, wall), m in zip(results, metrics):
+        rows = [_ttft_tpot(r["times"]) for r in runs]
+        print(f"serve (b) over {what}: 6 requests at once, "
+              f"{sum(new)} tokens in {wall:.3f} s; per request (TTFT ms, "
+              f"TPOT ms) as the client saw them {rows}; the replica's "
+              f"/metrics (mean ms, count) {m} [{card}]", flush=True)
+    for what, hs, toks, wall in inproc:
+        rows = [(round(h.ttft_s * 1e3, 2),
+                 round((h.finished_t - h.first_token_t) / (len(t) - 1)
+                       * 1e3, 3)) for h, t in zip(hs, toks)]
+        print(f"serve (b) {what} (phase 4's engine, the same mix at once): "
+              f"{sum(new)} tokens in {wall:.3f} s; per request (TTFT ms, "
+              f"TPOT ms) {rows} [{card}]", flush=True)
+    print(f"serve (b): flash launches in the replica {info['launches']}, "
+          f"in this process (its engine) {launches}", flush=True)
+    if any(launches.values()) or any(info["launches"].values()):
+        fail("serve: an engine launched a flash kernel (it attends through "
+             "the cache)")
+    for what, runs, _ in results:
+        check_one_shot(f"serve over {what}", model, models, prompts,
+                       [r["tokens"] for r in runs], device)
+    for what, _, toks, _ in inproc:
+        check_one_shot(f"engine {what}", model, models, prompts, toks,
+                       device)
+    same = sum(a["tokens"] == b for a, b in zip(results[0][1], local))
+    print(f"serve (b): HTTP streams equal to the in-process engine's "
+          f"(informational; batching differs, bf16 ties may flip): "
+          f"{same}/6", flush=True)
+    del model, eng
+    _delete_app(rt, serve, "llm", device)
+    return launches
+
+
+def serve_weight_plane_and_kill(rt, serve, models, ops, card, cls, marks,
+                                device, cfg, engine, new=48):
+    """Phase 16 (c) and (d): two replicas at half the card each, built
+    together; one runs params_fn and publishes, the other reads the
+    weights from the store. Then one is killed mid-stream and the stream
+    resumes on the survivor."""
+    from ray_tpu_torch.util.chaos import ServeReplicaKiller
+    gpus = {"num_gpus": 0.5} if device == "cuda" else {}
+    dep = serve.deployment(cls, name="pair", num_replicas=2,
+                           ray_actor_options=gpus)
+    t0 = time.perf_counter()
+    handle = serve.run(dep.bind(cfg, params_fn=_params_fn(cfg, marks,
+                                                           device),
+                                weights_key="smoke/pair", device=device,
+                                stream_coalesce_tokens=8, **engine),
+                       name="pair", route_prefix=None)
+    infos = _probe_all(rt, _replicas(handle, 2))
+    up_s = time.perf_counter() - t0
+    runs = _runs(marks)
+    print(f"serve (c): {cfg.n_layers}-layer {cfg.dtype} cut at full width, "
+          f"2 replicas up in {up_s:.2f} s: "
+          + "; ".join(f"pid {i['pid']} ids {i['ids']} mask {i['mask']!r} "
+                      f"start {i['init_s']:.2f} s, weights "
+                      f"{i['weights'].get('source')} in "
+                      f"{i['weights'].get('seconds', float('nan')):.2f} s"
+                      + (f" (params_fn {i['weights']['load_s']:.2f} s, "
+                         f"publish {i['weights']['publish_s']:.2f} s)"
+                         if i["weights"].get("source") == "loader" else
+                         f" (waiting for the publish "
+                         f"{i['weights'].get('wait_s', 0.0):.2f} s, the "
+                         f"read from the store "
+                         f"{i['weights'].get('get_s', float('nan')):.2f} s; "
+                         f"the rest of the construction, the copy to the "
+                         f"card and the engine: "
+                         f"{i['init_s'] - i['weights'].get('seconds', 0.0):.2f}"
+                         f" s)")
+                      for i in infos)
+          + f"; params_fn ran {runs} time(s) [{card}]", flush=True)
+    if runs != 1 or sorted(i["weights"].get("source") for i in infos) != \
+            ["arena", "loader"]:
+        fail("serve (c): params_fn did not run exactly once, or the second "
+             "replica did not read the weights from the store")
+    if device == "cuda" and any(i["ids"] != ["0"] or i["mask"] != "0"
+                                for i in infos):
+        fail("serve (c): a num_gpus=0.5 replica's ids or mask is not '0'")
+
+    # (d) an uninterrupted stream, then the same request with its replica
+    # killed after 2 coalesced chunks. The survivor re-prefills the
+    # delivered tokens: in bf16 a near-tied logit of the random model may
+    # then pick another token than the uninterrupted decode did, so the
+    # resumed stream is held against a one-shot forward, and the
+    # survivor's record of what it was asked shows no token lost or
+    # doubled.
+    prompt = np.random.RandomState(16).randint(0, cfg.vocab_size, 200)
+    stream = handle.options(stream=True)
+    oracle = list(stream.remote(prompt.tolist(), max_new_tokens=new))
+    pair = list(handle._router.replicas)
+    killer = ServeReplicaKiller("pair", "pair")
+    gen = stream.remote(prompt.tolist(), max_new_tokens=new)
+    got = [next(gen) for _ in range(17)]
+    t0 = time.perf_counter()
+    if not killer.kill_one(prefer_busy=True):
+        fail("serve (d): no replica to kill")
+    got.extend(gen)
+    resume_s = time.perf_counter() - t0
+
+    def resumed_on(reps):
+        out = []
+        for r in reps:
+            try:
+                asked = rt.get(r.handle_request.remote("submitted", (), {}),
+                               timeout=300)
+            except (rt.ActorDiedError, rt.WorkerCrashedError):
+                continue        # the killed one
+            out += [(p[len(prompt):], n) for p, n in asked
+                    if len(p) > len(prompt)]
+        return out
+    # the survivor's record; the replacement's only when it has none
+    resumed = resumed_on(pair)
+    where = "the survivor"
+    if not resumed:
+        handle._router.refresh(force=True)
+        ids = {r._actor_id for r in pair}
+        resumed = resumed_on([r for r in handle._router.replicas
+                              if r._actor_id not in ids])
+        where = "the replacement"
+    print(f"serve (d): killed a replica after 17 of {new} tokens; the "
+          f"stream resumed on {where}, the rest in {resume_s:.2f} s; "
+          f"{len(got)} tokens; it was asked to go on after "
+          f"{[len(t) for t, _ in resumed]} delivered tokens for "
+          f"{[n for _, n in resumed]} more; equal to the uninterrupted "
+          f"stream (informational in bf16): {got == oracle} (first "
+          f"difference {first_diff(got, oracle)}) [{card}]", flush=True)
+    if len(got) != new or len(resumed) != 1 or where != "the survivor":
+        fail(f"serve (d): {len(got)} tokens, want {new}; {len(resumed)} "
+             f"resumed requests on {where}, want 1 on the survivor")
+    (done, more), = resumed
+    if done != got[:len(done)] or more != new - len(done) \
+            or len(done) < 17:
+        fail("serve (d): the survivor was not asked to go on from exactly "
+             "the delivered tokens: a token was lost or doubled")
+    model = _seeded_model(models, cfg, device)
+    check_one_shot("serve (d) resumed stream", model, models, [prompt],
+                   [got], device)
+    del model
+    _delete_app(rt, serve, "pair", device)
+
+
+def serve_disagg(rt, serve, models, inference, ops, card, cls, marks,
+                 device, cfg, engine, prompt_len=512, new=32):
+    """Phase 16 (e): build_disagg_app with one prefill and one decode
+    replica at half the card each; a prompt prefilled on the prefill tier
+    hands its KV spans to the decode tier through the store, whose greedy
+    tokens must equal a colocated LLMDeployment's."""
+    from ray_tpu_torch.serve import DeploymentHandle
+    from ray_tpu_torch.serve.deployment import Application, Deployment
+    from ray_tpu_torch.serve.disagg import build_disagg_app, unpack_kv_spans
+    gpus = {"ray_actor_options": {"num_gpus": 0.5}} if device == "cuda" \
+        else {}
+    tier = dict(engine, params_fn=_params_fn(cfg, marks, device),
+                weights_key="smoke/disagg", device=device)
+    app = build_disagg_app(
+        cfg, decode_replicas=1, prefill_replicas=1,
+        prefill_kwargs=dict(tier, n_slots=2),
+        decode_kwargs=dict(tier), prefill_deployment_kwargs=gpus,
+        decode_deployment_kwargs=gpus)
+    # the same graph, with the decode tier's class replaced by its
+    # probing subclass
+    app = Application(Deployment(cls, app.deployment.name,
+                                 app.deployment.config), app.args,
+                      app.kwargs)
+    t0 = time.perf_counter()
+    handle = serve.run(app, name="disagg", route_prefix=None)
+    replicas = _replicas(handle, 1)
+    _probe_all(rt, replicas)
+    prefill = DeploymentHandle("prefill", "disagg")
+    prefill.stats.remote().result(timeout=900)      # built too
+    up_s = time.perf_counter() - t0
+    # the first request after the deploy: the fresh prefill replica's
+    # first export is this hand-off
+    prompt = np.random.RandomState(5).randint(0, cfg.vocab_size,
+                                              prompt_len)
+    t0 = time.perf_counter()
+    got = list(handle.options(stream=True).remote(prompt.tolist(),
+                                                  max_new_tokens=new))
+    req_s = time.perf_counter() - t0
+    info = rt.get(replicas[0].handle_request.remote("handoff_info", (), {}),
+                  timeout=60)
+    out = prefill.prefill_export.remote(prompt.tolist()).result(timeout=600)
+    spans = unpack_kv_spans(rt.get(out["ref"], timeout=600))
+    span_bytes = sum(a.nbytes for s in spans for a in s)
+    dtypes = sorted({f"{a.dtype}:{a.dtype.itemsize}B" for s in spans
+                     for a in s})
+    colocated = inference.LLMDeployment(
+        cfg, params_fn=lambda: models.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device),
+        weights_key=None, device=device, **engine)
+    want = colocated.generate(prompt.tolist(), max_new_tokens=new)
+    st = info["stats"]
+    print(f"serve (e): prefill and decode tiers ({cfg.n_layers}-layer "
+          f"{cfg.dtype} cut at full width) up in {up_s:.2f} s; the first "
+          f"request, a {prompt_len}-token prompt: {len(got)} tokens in "
+          f"{req_s:.2f} s; "
+          f"hand-off {info['admissions']} (seconds of the admission, KV "
+          f"imports), kv_imports {st['kv_imports']}, remote_prefix_tokens "
+          f"{st['remote_prefix_tokens']}, serve_kv_handoffs_total "
+          f"{info['handoffs']}, bytes {info['bytes']}; the prefill tier's "
+          f"export: {out['covered']} tokens in {len(spans)} spans, "
+          f"{span_bytes} bytes ({span_bytes / 2 ** 20:.1f} MiB), dtypes "
+          f"{dtypes}; decode tier equal to the colocated LLMDeployment: "
+          f"{got == want} (first difference {first_diff(got, want)}) "
+          f"[{card}]", flush=True)
+    if st["kv_imports"] != 1 or st["remote_prefix_tokens"] != \
+            (prompt_len - 1) // engine["prefill_chunk"] * \
+            engine["prefill_chunk"]:
+        fail("serve (e): the decode tier did not import the prefill tier's "
+             "blocks")
+    if cfg.dtype == torch.bfloat16 and "bfloat16:2B" not in dtypes:
+        fail(f"serve (e): bf16 spans shipped as {dtypes}")
+    if got != want:
+        fail("serve (e): the decode tier's tokens differ from the colocated "
+             "replica's")
+    check_one_shot("serve (e) decode tier", colocated.model, models,
+                   [prompt], [got], device)
+    colocated.engine.stop()
+    del colocated
+    _delete_app(rt, serve, "disagg", device)
+
+
+def run_serve(models, inference, ops, card, device="cuda", name="tpu-7b",
+              cut_layers=8, engine=None, lens=(100, 230, 370, 480, 610, 700),
+              new=(16, 20, 24, 28, 32, 24), store_gib=64, disagg_prompt=512):
+    """Phase 16: Serve on the card. Returns the flash launches in the
+    smoke's own process during (b) (the engines reach no kernel). The
+    store holds every part's weights at once (~29 GB at tpu-7b: an
+    object whose owner died stays until the arena is under pressure), so
+    nothing spills."""
+    import glob
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    engine = engine or dict(n_slots=8, max_len=1024, prefill_chunk=128,
+                            prefill_budget=256)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=store_gib * 2 ** 30)
+    session = rt._context.node.session_name
+    print(f"serve: init {time.perf_counter() - t0:.2f} s (session "
+          f"{session}, store {store_gib} GiB), resources "
+          f"{rt.cluster_resources()}", flush=True)
+    SmokeLLM, SmokeDecode = _serve_classes(inference)
+    full = models.MODEL_REGISTRY[name]
+    marks = tempfile.mkdtemp(prefix="serve_smoke_")
+    def arena(part):
+        st = rt._get_worker().core.store.stats()
+        print(f"serve: the store after {part}: {st['bytes_in_use']} of "
+              f"{st['capacity']} bytes in use", flush=True)
+    try:
+        launches = serve_start_and_requests(
+            rt, serve, models, inference, ops, card, SmokeLLM,
+            os.path.join(marks, "a"), device, name, engine, lens, new)
+        arena("(a)-(b)")
+        serve_weight_plane_and_kill(
+            rt, serve, models, ops, card, SmokeLLM, os.path.join(marks, "c"),
+            device, dataclasses.replace(full, n_layers=cut_layers), engine)
+        arena("(c)-(d)")
+        serve_disagg(rt, serve, models, inference, ops, card, SmokeDecode,
+                     os.path.join(marks, "e"), device,
+                     dataclasses.replace(full, n_layers=cut_layers), engine,
+                     prompt_len=disagg_prompt)
+        arena("(e)")
+        heartbeat_gap(rt, "serve")
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+            shutil.rmtree(marks, ignore_errors=True)
+    deadline = time.monotonic() + 30
+    while True:
+        left = _session_pids(session)
+        shm = glob.glob(f"/dev/shm/raytpu_torch_{session}_*")
+        if not left and not shm or time.monotonic() > deadline:
+            break
+        time.sleep(0.5)
+    print(f"serve (f): after serve.shutdown() and shutdown(), the session's "
+          f"processes {left}, /dev/shm files {shm}; phase 16 "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    if left or shm:
+        fail("serve left processes or shared-memory files behind")
+    return launches
 
 
 def main():
@@ -2645,6 +3304,9 @@ def main():
     torch.cuda.empty_cache()
     runtime_counts = run_runtime(models, parallel, train, ops, card,
                                  in_process)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_counts = run_serve(models, inference, ops, card)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)
@@ -2655,6 +3317,7 @@ def main():
         records[name]["mesh_launches"] = sum(c[name] for c in mesh_counts)
         records[name]["pipeline_launches"] = pipeline_counts[name]
         records[name]["actor_launches"] = runtime_counts[name]
+        records[name]["serve_launches"] = serve_counts[name]
     records["flash_fwd"]["launches"] += (gen_launches + eng_launches
                                          + moe_serve_launches)
     for name in KERNELS:

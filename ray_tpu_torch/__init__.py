@@ -382,6 +382,14 @@ def get_runtime_context():
             "gcs_address": w.core.gcs_address}
 
 
+def get_gpu_ids() -> List[str]:
+    """The GPU ids the runtime assigned to the running task or actor
+    (the ids its ``CUDA_VISIBLE_DEVICES`` mask was set from); empty in
+    the main program and in work that asked for no GPU."""
+    ids = getattr(_get_worker().core, "accelerator_ids", None) or {}
+    return [str(i) for i in ids.get("GPU", [])]
+
+
 import ray_tpu_torch.util as util  # noqa: E402  (public subpackage)
 
 # The model, ops and parallel exports load on first use, so that
@@ -425,5 +433,5 @@ __all__ = [
     "ActorHandle", "ActorClass",
     "RemoteFunction", "TaskError", "ActorDiedError", "ObjectLostError",
     "WorkerCrashedError", "TaskCancelledError", "util", "method",
-    "get_runtime_context", "get_gcs_address",
+    "get_runtime_context", "get_gcs_address", "get_gpu_ids",
 ] + sorted(_LAZY)

@@ -316,6 +316,11 @@ _flag("fleet_attach_timeout_s", float, 120.0,
       "construction + weight load + warmup inside the shell); past it "
       "the shell is discarded and the next shell (or a cold build) "
       "serves the revival.")
+_flag("serve_reconcile_period_s", float, 2.0,
+      "Period of the serve controller's reconcile loop (health checks, "
+      "autoscaling, rolling-update steps, proxy upkeep). For tests only, "
+      "which shorten it to wait less on the loop; deployments keep the "
+      "default.")
 _flag("prefix_summary_push", bool, True,
       "Push prefix_summaries table changes to routers over the serve "
       "long-poll plane (the controller snapshots the GCS table each "

@@ -448,7 +448,12 @@ class GcsServer:
         info = self.nodes.get(node_id)
         if info is None or not info["alive"]:
             return {"ok": False, "reason": "unknown or dead node"}
-        info["last_heartbeat"] = time.monotonic()
+        now = time.monotonic()
+        # the longest silence the death check has seen from this node
+        info["max_heartbeat_gap_s"] = max(
+            info.get("max_heartbeat_gap_s", 0.0),
+            now - info["last_heartbeat"])
+        info["last_heartbeat"] = now
         changed = False
         if available is not None and available != info["available"]:
             info["available"] = available
@@ -471,7 +476,8 @@ class GcsServer:
         return True
 
     def h_get_all_nodes(self, conn):
-        return [_node_public(n) for n in self.nodes.values()]
+        return [dict(_node_public(n), max_heartbeat_gap_s=n.get(
+            "max_heartbeat_gap_s", 0.0)) for n in self.nodes.values()]
 
     def h_get_cluster_view(self, conn):
         return self._cluster_view()
@@ -499,9 +505,17 @@ class GcsServer:
         return {nid: _node_view(n) for nid, n in self.nodes.items()}
 
     async def _check_node_deaths(self):
+        last = time.monotonic()
         while True:
             await asyncio.sleep(cfg.health_check_interval_s)
             now = time.monotonic()
+            late = now - last - cfg.health_check_interval_s
+            last = now
+            if late > cfg.health_check_interval_s:
+                # this loop was held: the heartbeats sent meanwhile are
+                # still unread, so the silence is the GCS's own. Judge
+                # on the next round, after they are read.
+                continue
             for node_id, info in list(self.nodes.items()):
                 if info["alive"] and now - info["last_heartbeat"] > cfg.node_death_timeout_s:
                     await self._mark_node_dead(node_id, "heartbeat timeout")
@@ -772,6 +786,14 @@ class GcsServer:
             return
         row = self.actors.get(actor_id)
         if row is None or row["state"] == DEAD:
+            # killed while it was being created: its worker exists now and
+            # holds the actor's resources, so it goes too
+            try:
+                await node_conn.call("kill_worker",
+                                     worker_id=result["worker_id"],
+                                     reason="actor killed during creation")
+            except (rpc.RpcError, rpc.ConnectionLost):
+                pass
             return
         row["state"] = ALIVE
         row["node_id"] = target
@@ -1628,8 +1650,10 @@ def main():
                         format="[gcs] %(asctime)s %(levelname)s %(message)s")
 
     async def run():
+        from ray_tpu_torch._private import loop_watch
         from ray_tpu_torch.util import sanitizers
         sanitizers.maybe_install()
+        loop_watch.install("gcs")
         gcs = GcsServer(port=args.port, session_name=args.session_name,
                         persist_path=args.persist_path)
         addr = await gcs.start()

@@ -2273,8 +2273,10 @@ def main():
                         format="[node] %(asctime)s %(levelname)s %(message)s")
 
     async def run():
+        from ray_tpu_torch._private import loop_watch
         from ray_tpu_torch.util import sanitizers
         sanitizers.maybe_install()
+        loop_watch.install("node manager")
         nm = NodeManager(gcs_address=args.gcs_address, node_id=args.node_id,
                          resources=json.loads(args.resources),
                          labels=json.loads(args.labels),

@@ -156,6 +156,10 @@ class ActorHandleState:
         self.work = asyncio.Event()
         self.seq_counter = 0
         self.sender: Optional[asyncio.Task] = None
+        # refs to the creation arguments this process put into the store
+        # (large ones): held until the actor is dead, since __init__ reads
+        # them at creation and again at every restart
+        self.init_arg_refs: list = []
 
 
 class CoreWorker:
@@ -2011,6 +2015,7 @@ class CoreWorker:
             spec["runtime_env"] = await self._package_runtime_env(
                 runtime_env)
         st = ActorHandleState(actor_id)
+        st.init_arg_refs = arg_refs
         self.actor_handles[actor_id] = st
         await self._ensure_actor_subscription()
         await self.gcs_call_async("create_actor", spec=spec)
@@ -2048,6 +2053,7 @@ class CoreWorker:
                 st.ready.clear()
             elif payload["state"] == "DEAD":
                 st.address = None
+                st.init_arg_refs = []
                 st.ready.set()
         return None
 
@@ -2592,6 +2598,8 @@ class CoreWorker:
 
     def _apply_accelerator_ids(self, spec: Dict):
         ids = spec.get("accelerator_ids")
+        # what get_gpu_ids() reports for the running task or actor
+        self.accelerator_ids = dict(ids or {})
         try:
             from ray_tpu_torch._private.accelerators import (all_accelerator_managers,
                                                        get_accelerator_manager)

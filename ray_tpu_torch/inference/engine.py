@@ -25,10 +25,12 @@ Counterpart of ``ray_tpu/inference/engine.py``, on one device:
   stays full precision. ``export_kv_blocks``/``import_kv_blocks`` move
   cached blocks between engines as host spans.
 
-Sampling is shared with ``make_generate_fn`` (models/sampling.py). A
-sharded engine (``mesh``), step profiling and flight-recorder events are
-not ported yet: they wait for Serve's sharded replicas and the step
-profiler (ROADMAP.md, Queue A items A3g and A3d).
+Sampling is shared with ``make_generate_fn`` (models/sampling.py).
+``on_step`` (set by ``inference/api.py``'s ``LLMDeployment``) is called
+with ``stats()`` after every step. A sharded engine (``mesh``), step
+profiling and flight-recorder events are not ported yet: they wait for
+Serve's sharded replicas and the step profiler (ROADMAP.md, Queue A items
+A3g-2 and A3d).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -113,7 +115,7 @@ class InferenceEngine:
             # sample the same tokens in lockstep (the JAX package's
             # serve/sharded.py), which sits on the runtime core
             raise NotImplementedError(
-                "a sharded engine (mesh) " + _NOT_PORTED.format("A3g"))
+                "a sharded engine (mesh) " + _NOT_PORTED.format("A3g-2"))
         cfg = self.config = config or EngineConfig()
         self.device = resolve_device(device)
         self.model = model
@@ -214,6 +216,8 @@ class InferenceEngine:
         self.kv_exports = 0
         self.kv_imports = 0
         self.remote_prefix_tokens = 0
+        # called with stats() after every step (LLMDeployment's gauges)
+        self.on_step: Optional[Callable[[Dict], None]] = None
 
     def _zeros(self, shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -391,6 +395,11 @@ class InferenceEngine:
                         self.sched.decode_emit(st, int(toks[slot]), now)
                 did = True
             self.steps += 1
+            if self.on_step is not None:
+                try:
+                    self.on_step(self.stats())
+                except Exception:
+                    pass
             return did
 
     def _emit_spec(self, active):

@@ -1,9 +1,9 @@
 """Radix prefix KV cache bookkeeping for the continuous-batching engine.
 
 The port's own copy of ``ray_tpu/inference/prefix_cache.py`` (pure host
-Python), without what only the Serve routing plane uses (path fingerprints,
-``peek``, ``covered_fp``, ``summary``, ``evict_blocks``), which is not
-ported.
+Python). Its path fingerprints are bit-equal to the JAX package's: the
+Serve router and the disaggregated tiers (serve/handle.py,
+serve/disagg.py) compare them across replicas.
 
 Shared prompts (system prompts, few-shot preambles, resumed streams) would
 re-run prefill over the same tokens on every request although the KV they
@@ -33,8 +33,42 @@ here locks.
 
 from __future__ import annotations
 
+import hashlib
 import itertools
+import struct
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+
+def _roll_fp(parent_fp: int, key: Sequence[int]) -> int:
+    """Rolling 64-bit path fingerprint: hash of (parent fingerprint, this
+    chunk's tokens as little-endian int32). Two prompts share fingerprint
+    ``i`` iff they share their first ``(i+1) * chunk_size`` tokens (modulo
+    hash collision), so a flat fingerprint SET answers "how deep does this
+    replica's trie cover my prompt" without shipping tokens."""
+    h = hashlib.blake2b(digest_size=8)
+    h.update(parent_fp.to_bytes(8, "little"))
+    h.update(struct.pack(f"<{len(key)}i", *(int(t) for t in key)))
+    return int.from_bytes(h.digest(), "little")
+
+
+def chunk_fingerprints(tokens: Sequence[int], chunk_size: int,
+                       max_chunks: Optional[int] = None) -> List[int]:
+    """Path fingerprints of a prompt's full chunks: element ``i`` covers
+    ``tokens[: (i+1) * chunk_size]``. The router computes these for an
+    incoming prompt and intersects them with each replica's published
+    summary to find the deepest cluster-wide match (serve/disagg.py)."""
+    C = int(chunk_size)
+    if C <= 0:
+        raise ValueError("chunk_size must be positive")
+    n = len(tokens) // C
+    if max_chunks is not None:
+        n = min(n, max(0, int(max_chunks)))
+    fps: List[int] = []
+    fp = 0
+    for c in range(n):
+        fp = _roll_fp(fp, tokens[c * C:(c + 1) * C])
+        fps.append(fp)
+    return fps
 
 
 class TrieNode:
@@ -43,7 +77,8 @@ class TrieNode:
     values; ``pins`` counts in-flight requests that matched through this
     node and have not yet copied it out."""
 
-    __slots__ = ("key", "block", "children", "parent", "pins", "stamp")
+    __slots__ = ("key", "block", "children", "parent", "pins", "stamp",
+                 "fp")
 
     def __init__(self, key: Optional[Tuple[int, ...]], block: Optional[int],
                  parent: Optional["TrieNode"]):
@@ -53,6 +88,9 @@ class TrieNode:
         self.children: Dict[Tuple[int, ...], "TrieNode"] = {}
         self.pins = 0
         self.stamp = 0
+        # path fingerprint (root -> this node), the unit the cluster-wide
+        # routing summary is built from
+        self.fp = 0
 
     def __repr__(self):
         return (f"TrieNode(block={self.block}, pins={self.pins}, "
@@ -124,6 +162,21 @@ class RadixPrefixCache:
             if n.pins > 0:
                 n.pins -= 1
 
+    def peek(self, tokens: Sequence[int]) -> int:
+        """Longest capped match length WITHOUT pinning, LRU touch, or
+        hit/lookup accounting: the read the disaggregated admission path
+        and routing decisions use (``match`` is for admissions that will
+        copy the blocks out)."""
+        node = self._root
+        depth = 0
+        for c in range(max(0, len(tokens) - 1) // self.chunk_size):
+            child = self._child(node, tokens, c)
+            if child is None:
+                break
+            node = child
+            depth += 1
+        return depth * self.chunk_size
+
     def walk(self, tokens: Sequence[int], n_chunks: int) -> List[TrieNode]:
         """PINNED nodes for the first ``n_chunks`` chunks of ``tokens``
         present in the trie (contiguous from the root, no one-token-short
@@ -142,6 +195,40 @@ class RadixPrefixCache:
         if out:
             self._pin(out)
         return out
+
+    def covered_fp(self, tokens: Sequence[int], n_chunks: int
+                   ) -> Optional[int]:
+        """The path fingerprint of the DEEPEST trie node covering the
+        first ``n_chunks`` chunks of ``tokens`` (None when even the first
+        chunk is absent). The KV-fabric export path proves a peer's
+        requested fingerprint against the live trie with it: a published
+        summary is a snapshot and can name blocks evicted since. Stat-free
+        and unpinned (the following ``walk`` pins)."""
+        node = self._root
+        fp = None
+        for c in range(max(0, int(n_chunks))):
+            child = self._child(node, tokens, c)
+            if child is None:
+                break
+            fp = child.fp
+            node = child
+        return fp
+
+    def summary(self, top_k: int = 128) -> Dict[str, Any]:
+        """Compact trie summary for cluster-wide prefix routing: the
+        ``top_k`` most recently touched nodes' path fingerprints, the
+        chunk size they were computed at and the blocks cached. No tokens
+        leave the replica; the payload is ~8 bytes per cached chunk."""
+        rows: List[Tuple[int, int]] = []
+        stack = list(self._root.children.values())
+        while stack:
+            n = stack.pop()
+            rows.append((n.stamp, n.fp))
+            stack.extend(n.children.values())
+        rows.sort(reverse=True)
+        return {"fps": [fp for _, fp in rows[:max(0, int(top_k))]],
+                "chunk": self.chunk_size,
+                "blocks": self.blocks_cached}
 
     # ------------------------------------------------------------- insert
     def insert(self, tokens: Sequence[int]) -> List[Tuple[int, int]]:
@@ -165,6 +252,7 @@ class RadixPrefixCache:
                         break
                     key = tuple(int(t) for t in tokens[c * C:(c + 1) * C])
                     child = TrieNode(key, block, node)
+                    child.fp = _roll_fp(node.fp, key)
                     node.children[key] = child
                     self.blocks_cached += 1
                     created.append((c * C, block))

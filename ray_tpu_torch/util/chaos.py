@@ -1,5 +1,6 @@
-"""Chaos-testing utilities (the port keeps the two it tests with: the
-shared-memory create killer and the pipeline's stage killer). RPC-level
+"""Chaos-testing utilities (the port keeps those it tests with: the
+shared-memory create killer, the pipeline's stage killer, and Serve's
+replica killer and prefill-export killer). RPC-level
 failure injection lives in _private/rpc.py behind
 RAY_TPU_TORCH_TESTING_RPC_FAILURE; the ``push_chunk`` key there covers
 both object-transfer transports (the msgpack chunk RPCs and the data
@@ -15,7 +16,9 @@ must repair from. Arm child client processes via ``ShmCreateKiller``."""
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+import random
+import time
+from typing import Dict, List, Optional
 
 
 class ShmCreateKiller:
@@ -151,3 +154,155 @@ class StageKiller:
             os.remove(marker_path)
         except FileNotFoundError:
             pass
+
+
+class PrefillExportKiller:
+    """Injects failure into the disaggregated-serving KV hand-off: the
+    prefill tier's ``prefill_export`` runs the injection hook at entry
+    AND right before returning (``serve/disagg.py``), so with
+    probability ``p`` an export dies either before any prefill work or
+    AFTER the payload object exists but before the hand-off completes —
+    the two halves of "prefill replica killed mid-export". The decode
+    tier must fall back to LOCAL prefill with exactly-once token
+    delivery preserved (nothing has streamed when the rung fails).
+
+    Spec: ``RAY_TPU_TORCH_TESTING_RPC_FAILURE="prefill_export=p"``; like the
+    other RPC-chaos specs it must be in the environment BEFORE the
+    victim process parses it (first injection check caches the spec).
+    Compose with :class:`ServeReplicaKiller` on the prefill deployment
+    to exercise the actor-death (rather than exception) variant."""
+
+    SPEC_ENV = "RAY_TPU_TORCH_TESTING_RPC_FAILURE"
+
+    def __init__(self, probability: float = 1.0):
+        if not 0.0 < probability <= 1.0:
+            raise ValueError("probability must be in (0, 1]")
+        self.probability = probability
+
+    def spec(self) -> str:
+        return f"prefill_export={self.probability}"
+
+    def env(self, base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+        e = dict(base if base is not None else os.environ)
+        prior = e.get(self.SPEC_ENV)
+        e[self.SPEC_ENV] = f"{prior},{self.spec()}" if prior else self.spec()
+        return e
+
+    def arm_local(self):
+        """Arm the CURRENT process (direct-instantiation tests): sets
+        the env var and resets rpc.py's parsed-spec cache so the next
+        injection check re-reads it. Pair with :meth:`disarm_local`."""
+        from ray_tpu_torch._private import rpc
+        os.environ[self.SPEC_ENV] = self.spec()
+        rpc._CHAOS_SPEC = None
+
+    @staticmethod
+    def disarm_local():
+        from ray_tpu_torch._private import rpc
+        os.environ.pop(PrefillExportKiller.SPEC_ENV, None)
+        rpc._CHAOS_SPEC = None
+
+
+class ServeReplicaKiller:
+    """Kill serve replica actors mid-request (streaming included) and
+    let the controller's reconcile loop replace them — the serving
+    analog of NodeKiller. Used by the kill-replica-mid-stream tests to
+    assert that per-replica resources (inference-engine slots, queue
+    gauges) come back clean on the replacement replica."""
+
+    def __init__(self, app_name: str, deployment_name: str, seed: int = 0):
+        self.app_name = app_name
+        self.deployment_name = deployment_name
+        self.killed = 0
+        self.preempted = 0
+        self._rng = random.Random(seed)
+
+    def _controller(self):
+        from ray_tpu_torch.serve.api import _get_controller
+        return _get_controller()
+
+    def _info(self):
+        import ray_tpu_torch
+        return ray_tpu_torch.get(self._controller().get_deployment_info.remote(
+            self.app_name, self.deployment_name), timeout=30)
+
+    def replicas(self) -> List:
+        return list(self._info().get("replicas") or [])
+
+    def kill_one(self, prefer_busy: bool = False) -> bool:
+        """Kill one (random) replica actor; returns False when none are
+        up. The controller detects the death on its next reconcile and
+        builds a replacement. prefer_busy=True targets a replica with a
+        non-empty queue when one exists — the interesting victim for
+        stream-resume tests (killing an idle replica severs nothing)."""
+        import ray_tpu_torch
+        reps = self.replicas()
+        if not reps:
+            return False
+        victim = None
+        if prefer_busy:
+            for r in reps:
+                try:
+                    if ray_tpu_torch.get(r.get_queue_len.remote(),
+                                   timeout=10) > 0:
+                        victim = r
+                        break
+                except Exception:
+                    continue
+        if victim is None:
+            victim = self._rng.choice(reps)
+        try:
+            ray_tpu_torch.kill(victim)
+        except Exception:
+            return False
+        self.killed += 1
+        return True
+
+    def preempt_one(self, grace_s: Optional[float] = None) -> bool:
+        """Graceful-notice preemption: the controller delivers a drain
+        notice to one (random) replica, drops it from the routing table,
+        and pre-starts a replacement — exercising the notice -> drain ->
+        replace path instead of the crash path. The drained replica is
+        force-killed at the grace deadline if its queue never empties."""
+        import ray_tpu_torch
+        n = len(self.replicas())
+        if not n:
+            return False
+        ok = ray_tpu_torch.get(self._controller().preempt_replica.remote(
+            self.app_name, self.deployment_name,
+            self._rng.randrange(n), grace_s), timeout=30)
+        if ok:
+            self.preempted += 1
+        return bool(ok)
+
+    def wait_for_replacement(self, timeout_s: float = 60.0,
+                             min_running: int = 1, handle=None) -> bool:
+        """Block until the deployment again reports >= min_running
+        replicas under a NEW version set (the controller bumps the
+        router view when the replica set changes). Pass the test's
+        DeploymentHandle as `handle` to ALSO wait for router-view
+        propagation — the handle's router must have applied the new
+        replica set, otherwise the next `handle.remote(...)` races the
+        stale routing table and lands on the corpse."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            try:
+                info = self._info()
+                reps = list(info.get("replicas") or [])
+                if len(reps) >= min_running:
+                    import ray_tpu_torch
+                    # replacement must actually answer, not just exist
+                    ray_tpu_torch.get([r.get_queue_len.remote() for r in reps],
+                                timeout=10)
+                    if handle is None:
+                        return True
+                    router = handle._router
+                    router.refresh(force=True)
+                    with router.lock:
+                        if (router.version >= info["version"]
+                                and len(router.replicas) >= min_running):
+                            return True
+            except Exception:
+                pass
+            time.sleep(0.5)
+        return False

@@ -118,6 +118,48 @@ def test_name_rules_catch_the_reference_launch_strings():
     assert "RAY_TPU_ADDRESS" in env
 
 
+# Serve: the port's own copy, whose actors (controller, proxy, replicas)
+# are launched by the port's runtime from these modules
+SERVE_MODULES = ("ray_tpu_torch.serve", "ray_tpu_torch.serve.api",
+                 "ray_tpu_torch.serve.controller",
+                 "ray_tpu_torch.serve.deployment",
+                 "ray_tpu_torch.serve.fleet", "ray_tpu_torch.serve.handle",
+                 "ray_tpu_torch.serve.long_poll",
+                 "ray_tpu_torch.serve.multiplex",
+                 "ray_tpu_torch.serve.proxy", "ray_tpu_torch.serve.replica",
+                 "ray_tpu_torch.serve.schema", "ray_tpu_torch.serve.slo",
+                 "ray_tpu_torch.serve.weights")
+
+
+def test_serve_is_scanned_and_imports_no_torch():
+    """Every Serve module is among the files the scans above read (so
+    none imports JAX or names the JAX runtime), and importing Serve, with
+    the modules its controller, proxy and replica actors run, loads no
+    torch (only LLMDeployment and the disaggregated tiers do, in the
+    replica that builds them)."""
+    import subprocess
+    import sys
+    scanned = {".".join(p.relative_to(ROOT).with_suffix("").parts)
+               for p in _port_files()}
+    assert {m for m in SERVE_MODULES if m != "ray_tpu_torch.serve"} \
+        | {"ray_tpu_torch.serve.disagg",
+           "ray_tpu_torch.inference.api"} <= scanned
+    launched = {"ServeController": "ray_tpu_torch.serve.controller",
+                "HttpProxy": "ray_tpu_torch.serve.proxy",
+                "Replica": "ray_tpu_torch.serve.replica"}
+    code = ("import importlib, sys\n"
+            f"for m in {SERVE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"for cls, mod in {launched!r}.items():\n"
+            "    assert getattr(sys.modules[mod], cls).__module__ == mod\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch',) + FORBIDDEN[:4]!r} or m.startswith('ray_tpu.')]\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 CONTROL_PLANE = ("ray_tpu_torch/_private/gcs.py",
                  "ray_tpu_torch/_private/node_manager.py",
                  *sorted(str(p.relative_to(ROOT)) for p in
