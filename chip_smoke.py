@@ -32,7 +32,10 @@ Phases, each of which must pass (any failure exits non-zero):
 4. The continuous-batching engine on the same model: six requests of
    100-700 prompt tokens, one submitted mid-decode, stepped to the end.
    Every greedy token it emitted is then held against a one-shot forward
-   of the same weights over the prompt and the tokens before it.
+   of the same weights over the prompt and the tokens before it. The
+   engine runs with step_profile: the decode steps' MFU, MFU over the
+   compute phase and host gap (its engine.decode spans' attribution) are
+   printed.
 5. Training at tpu-3b width and 4 layers (fp32 master weights, bf16
    compute, no activation recompute, batch 4 x 1024): one make_train_fns
    step through the kernels and one through plain attention, from the same
@@ -121,8 +124,9 @@ Phases, each of which must pass (any failure exits non-zero):
     bound), each step launching B1 192 times (forward and the backward's
     recompute) and B2 and B3 96 times, every stage program at one input
     shape; the step time, per-stage compute, host time, measured and
-    analytic bubble, peak memory, the replay budget and the ratio to phase
-    7's step are printed. (b) The same with stage 1 killed in step 3's
+    analytic bubble, peak memory, the replay budget, the ratio to phase
+    7's step and the trainer's StepProfiler record (runtime_mpmd_mfu) are
+    printed. (b) The same with stage 1 killed in step 3's
     first forward: the recovery (park, rebuild from the step-2 snapshot,
     replay) must land (a)'s state digests bit for bit. (c) 4 virtual
     stages of 6 blocks interleaved on 2 hosts against the plain 4-stage
@@ -154,8 +158,9 @@ Phases, each of which must pass (any failure exits non-zero):
     /dev/shm/raytpu_torch_* file may remain.
 15. A JSON line of the kernels (with each one's TFLOP/s, its share of the
     bound, whether it runs on the tensor cores and its launches on the
-    mesh's, the pipeline's, the actors' and Serve's paths), the card line
-    again, and last the result. It is printed after phase 16.
+    mesh's, the pipeline's, the actors', Serve's and the train worker's
+    paths), the card line again, and last the result. It is printed after
+    phase 17.
 16. Serve on the card (ray_tpu_torch.serve, on a fresh runtime with a
     64 GiB store: every part's weights fit at once). (a)
     serve.start(http_port=0) and serve.run of an
@@ -181,17 +186,41 @@ Phases, each of which must pass (any failure exits non-zero):
     0.5 (8 layers, bf16): a 512-token prompt is prefilled on the prefill
     tier and its bf16 spans cross the store into the decode tier, whose
     greedy tokens must equal a colocated LLMDeployment's; the span bytes
-    and dtypes and the hand-off are printed. (f) serve.shutdown() and
-    shutdown() must leave no process or arena of the session. Engines
-    attend through the cache: phase 16 launches no flash kernel, in the
-    smoke's own process or in a replica.
+    and dtypes and the hand-off are printed. Before serve.shutdown(),
+    timeline() must hold the replicas' engine spans (engine.slot,
+    engine.decode) and the proxy's proxy.request spans, which are printed
+    with runtime_decode_step_mfu from the /metrics aggregate. (f)
+    serve.shutdown() and shutdown() must leave no process or arena of the
+    session. Engines attend through the cache: phase 16 launches no flash
+    kernel, in the smoke's own process or in a replica.
+17. The train executor on the card (ray_tpu_torch.train, on a fresh
+    runtime). (a) TorchTrainer with one num_gpus=1 worker whose loop is
+    phase 7's recipe on tpu-3b at full width and depth (the same seeds and
+    batch) through make_train_fns(profiler=train.step_profiler()), 5 steps:
+    the worker's GPU ids and mask must be "0", each step's loss and
+    grad_norm bit for bit phase 7's, its launches 48/24/24, and the
+    profiler's runtime_train_step_mfu, _mfu_compute and
+    _phase_ms{compute,host_gap,data_wait}, read back from the GCS
+    time-series plane (util/state.query_metrics), equal to its last
+    record; each step's time and its ratio to phase 7's, the peak memory,
+    wrap_step's FLOPs beside the model FLOPs and the MFU are printed. (b)
+    The recipe cut to 2 layers, a Checkpoint (torch.save of the state) per
+    step, the worker exiting once the trainer stored step 2's, and
+    FailureConfig(max_failures=1): the gang restarts from the latest
+    checkpoint, every step's loss and grad_norm must equal an
+    uninterrupted run's in this process, and CheckpointManager must keep
+    num_to_keep=2; the recovery time is printed. (c) timeline() must hold
+    the train.fit span and train.report instants, the worker's
+    train_step.step spans with mfu and compute_ms, and the
+    runtime_train_step_mfu counter track. (d) shutdown() must leave no
+    process or arena of the session.
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
 Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
 9, 10, 12, each part of 13, 16 (b)) and read just after it; phase 14's stage
-actors are fresh processes whose counts start at 0, and the trainer sums
-what each reports per step; launches made to compare or time a
+actors and phase 17's train workers are fresh processes whose counts
+start at 0, and the trainer (the loop) sums what each reports per step; launches made to compare or time a
 kernel (2, 5, the remat checks of 7 and 10, 11, phase 12's no-mesh
 generator and its dispatch check) do not count. Phase 12's no-mesh
 trainers are the steps its mesh steps are held to, and count; so do phase
@@ -813,13 +842,16 @@ def run_engine(model, models, inference, ops, card, device="cuda",
     hold=False leaves out the check against a one-shot forward (an expert
     model at a capacity factor under E/K routes a chunk, a decode step and
     a one-shot forward differently)."""
+    from ray_tpu_torch._private import events
     vocab = model.cfg.vocab_size
     cfg = inference.EngineConfig(n_slots=n_slots, max_len=max_len,
-                                 prefill_chunk=chunk, prefill_budget=budget)
+                                 prefill_chunk=chunk, prefill_budget=budget,
+                                 step_profile=True)
     eng = inference.InferenceEngine(model, cfg, device=device, seed=0)
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, vocab, n) for n in lens]
 
+    events.drain()           # this run's engine.decode spans, read below
     zero_counts(ops)                               # main path: engine
     t0 = time.perf_counter()
     handles = [eng.submit(p, max_new_tokens=n)
@@ -866,10 +898,36 @@ def run_engine(model, models, inference, ops, card, device="cuda",
           f"steps, {wall:.3f} s ({total / wall:.1f} tokens/s overall), "
           f"flash_fwd launches {launches} (chunked prefill and decode attend "
           f"through the cache) [{card}]", flush=True)
+    decodes = [r["attrs"] for r in events.drain()
+               if r.get("name") == "engine.decode"]
+    print(f"engine: the decode steps' attribution "
+          f"(runtime_decode_step_*, StepProfiler over analytic FLOPs), "
+          f"{decode_profile(decodes)} [{card}]", flush=True)
 
     if hold:
         check_one_shot("engine", model, models, prompts, streams, device)
     return launches
+
+
+def profile_fields(rec):
+    """A StepProfiler record's MFU and phases, for a print."""
+    return {k: rec.get(k) for k in ("mfu", "mfu_compute", "compute_ms",
+                                    "host_gap_ms", "data_wait_ms",
+                                    "tokens_per_s")}
+
+
+def decode_profile(attrs):
+    """median [min, max] of each engine.decode span's attribution."""
+    if not attrs:
+        fail("the engine recorded no attributed decode step")
+    out = []
+    for key in ("mfu", "mfu_compute", "compute_ms", "host_gap_ms",
+                "data_wait_ms"):
+        vals = [a[key] for a in attrs if key in a]
+        if vals:
+            med, lo, hi = median_spread(vals)
+            out.append(f"{key} {med:.6g} [{lo:.6g}, {hi:.6g}]")
+    return f"{len(attrs)} steps: " + ", ".join(out)
 
 
 def check_one_shot(what, model, models, prompts, streams, device):
@@ -901,15 +959,16 @@ def check_one_shot(what, model, models, prompts, streams, device):
 
 
 def train_fns(models, parallel, cfg, device, B, L, loss_chunk,
-              optimizer=None):
+              optimizer=None, profiler=None):
     """A tpu-3b-shaped model on the meta device and its trainer: by default
     adamw(3e-4) with optax's other defaults, fp32 master weights and no
     activation recompute (phases 5 and 6, whose numbers PERF.md compares
-    across PRs); phase 7 passes its recipe's config and optimizer."""
+    across PRs); phase 7 passes its recipe's config and optimizer, phase
+    17's train worker also its step profiler."""
     model = models.TransformerLM(cfg, device="meta")
     init_fn, step_fn, _ = parallel.make_train_fns(
         model, optimizer or parallel.adamw(3e-4), batch_shape=(B, L + 1),
-        loss_chunk=loss_chunk, device=device)
+        loss_chunk=loss_chunk, device=device, profiler=profiler)
     return model, init_fn, step_fn
 
 
@@ -1119,8 +1178,9 @@ def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
                n_layers=None, B=4, L=1024, steps=5, loss_chunk=256,
                lr=3e-4):
     """Phase 7: the recipe at full width and depth (phase 10: an expert
-    model cut to n_layers). Returns the kernel launch counts of the run
-    and its step time (the median of steps 2 on).
+    model cut to n_layers). Returns the kernel launch counts of the run,
+    its step time (the median of steps 2 on) and each step's (loss,
+    grad_norm, seconds).
     lr is the recipe's; Adafactor scales its steps by the weights' RMS, so
     at a rehearsal's llama-debug size 3e-4 moves the loss by only ~0.02 in
     5 steps, and the rehearsal passes 1e-2."""
@@ -1144,7 +1204,7 @@ def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
         torch.cuda.reset_peak_memory_stats()
     n = cfg.n_layers if device == "cuda" else 0
     want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
-    losses, times = [], []
+    losses, times, trajectory = [], [], []
     zero_counts(ops)                               # main path: the recipe
     for i in range(steps):
         before = read_counts(ops)
@@ -1155,6 +1215,7 @@ def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
         loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
         aux = metrics["moe_aux"].item()
         losses.append(loss)
+        trajectory.append((loss, gnorm, times[-1]))
         step_counts = {k: c - before[k] for k, c in read_counts(ops).items()}
         moe = (f", moe_aux {aux:.6f}, total_loss "
                f"{metrics['total_loss'].item():.6f}" if cfg.n_experts else "")
@@ -1190,7 +1251,7 @@ def run_recipe(models, parallel, ops, card, device="cuda", name="tpu-3b",
     if state.step != steps:
         fail(f"state.step is {state.step}, want {steps}")
     del state, model
-    return counts, steady
+    return counts, steady, trajectory
 
 
 def add_counts(total, ops):
@@ -2113,8 +2174,12 @@ def run_pipeline(models, parallel, train, ops, card, recipe_step_s,
     walls = [h["wall_s"] for h in out["history"]]
     steady = float(np.median(walls[1:])) if steps > 1 else walls[0]
     print(f"pipeline {name}: stage FLOPs per step {flops} (4x the "
-          f"forward's aten products), {sum(flops) / steady / 1e12:.1f} "
-          f"TFLOP/s over the step time", flush=True)
+          f"forward's aten products and attention), "
+          f"{sum(flops) / steady / 1e12:.1f} TFLOP/s over the step time",
+          flush=True)
+    print(f"pipeline {name}: runtime_mpmd_* of the last step (the trainer's "
+          f"StepProfiler, {tr.profiler.flops / 1e12:.3f} TFLOP per step): "
+          f"{profile_fields(tr.profiler.last)} [{card}]", flush=True)
     if not all(f > 0 for f in flops):
         fail(f"a stage counted no FLOPs: {flops}")
     print(f"pipeline {name}: step time {steady * 1e3:.1f} ms (median of "
@@ -2581,8 +2646,6 @@ def heartbeat_gap(rt, what):
 def run_runtime(models, parallel, train, ops, card, in_process):
     """Phase 14: the runtime core on the card. Returns the flash launches
     counted in the stage actors of (c) and (d)."""
-    import glob
-
     import ray_tpu_torch as rt
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -2598,15 +2661,7 @@ def run_runtime(models, parallel, train, ops, card, in_process):
         heartbeat_gap(rt, "runtime")
     finally:
         rt.shutdown()
-    deadline = time.monotonic() + 30
-    while True:
-        # this session's processes (GCS, node managers, workers) and
-        # arenas; another runtime on the machine is not this phase's
-        left = _session_pids(session)
-        shm = glob.glob(f"/dev/shm/raytpu_torch_{session}_*")
-        if not left and not shm or time.monotonic() > deadline:
-            break
-        time.sleep(0.5)
+    left, shm = session_left(session)
     print(f"runtime: after shutdown, the session's processes {left}, "
           f"/dev/shm files {shm}; phase 14 {time.perf_counter() - t_phase:.1f}"
           f" s, actor launches {counts}", flush=True)
@@ -3176,7 +3231,6 @@ def run_serve(models, inference, ops, card, device="cuda", name="tpu-7b",
     store holds every part's weights at once (~29 GB at tpu-7b: an
     object whose owner died stays until the arena is under pressure), so
     nothing spills."""
-    import glob
     import tempfile
 
     import ray_tpu_torch as rt
@@ -3212,24 +3266,372 @@ def run_serve(models, inference, ops, card, device="cuda", name="tpu-7b",
                      prompt_len=disagg_prompt)
         arena("(e)")
         heartbeat_gap(rt, "serve")
+        serve_timeline(rt, card)
     finally:
         try:
             serve.shutdown()
         finally:
             rt.shutdown()
             shutil.rmtree(marks, ignore_errors=True)
-    deadline = time.monotonic() + 30
-    while True:
-        left = _session_pids(session)
-        shm = glob.glob(f"/dev/shm/raytpu_torch_{session}_*")
-        if not left and not shm or time.monotonic() > deadline:
-            break
-        time.sleep(0.5)
+    left, shm = session_left(session)
     print(f"serve (f): after serve.shutdown() and shutdown(), the session's "
           f"processes {left}, /dev/shm files {shm}; phase 16 "
           f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     if left or shm:
         fail("serve left processes or shared-memory files behind")
+    return launches
+
+
+def serve_timeline(rt, card):
+    """Phase 16, before serve.shutdown(): the timeline holds the replicas'
+    engine spans and the proxy's request spans; the replicas' decode-step
+    MFU from the /metrics aggregate."""
+    import tempfile
+
+    from ray_tpu_torch.util.metrics import render_prometheus
+    path = os.path.join(tempfile.mkdtemp(prefix="serve_timeline_"),
+                        "timeline.json")
+    rt.timeline(path)
+    with open(path) as f:
+        evs = json.load(f)
+    me = rt._get_worker().core.worker_id[:8]
+    spans = {}
+    for e in evs:
+        if e.get("ph") == "X" and (e.get("cat") == "engine"
+                                   and e["tid"] != me
+                                   or e["name"] == "proxy.request"):
+            spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    summary = {k: f"{len(v)}, median {float(np.median(v)):.2f} ms "
+                  f"[{min(v):.2f}, {max(v):.2f}]"
+               for k, v in sorted(spans.items())}
+    text = render_prometheus(rt._get_worker().gcs_call("get_metrics"))
+    mfu = [line for line in text.splitlines()
+           if line.startswith("runtime_decode_step_mfu")]
+    print(f"serve: timeline {len(evs)} events ({os.path.getsize(path)} "
+          f"bytes); the replicas' engine spans and the proxy's request "
+          f"spans (count, duration) {summary}; runtime_decode_step_mfu* in "
+          f"the /metrics aggregate: {mfu} [{card}]",
+          flush=True)
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    if not {"engine.decode", "engine.slot", "proxy.request"} <= set(spans):
+        fail(f"serve: the timeline lacks the replicas' engine spans or the "
+             f"proxy's request spans: {sorted(spans)}")
+
+
+def session_left(session, timeout_s=30):
+    """After shutdown(): the session's processes (the GCS, node managers
+    and workers) and /dev/shm arenas still there once they had
+    ``timeout_s`` to go; another runtime on the machine is not this
+    session's."""
+    import glob
+    deadline = time.monotonic() + timeout_s
+    while True:
+        left = _session_pids(session)
+        shm = glob.glob(f"/dev/shm/raytpu_torch_{session}_*")
+        if not left and not shm or time.monotonic() > deadline:
+            return left, shm
+        time.sleep(0.5)
+
+
+# ------------------------------------------------------------- phase 17
+
+def recipe_worker_loop(config):
+    """Phase 17's train_loop_per_worker: phase 7's recipe (tpu-3b, bf16
+    weights, adafactor, remat "dots", the same seeds and batch) through
+    make_train_fns(profiler=train.step_profiler()), reporting each step's
+    loss, grad_norm, time, kernel launches and profiler record. With
+    ``checkpoint`` each step reports a Checkpoint of the state
+    (torch.save), and a run resumed from one continues after its step;
+    with ``crash_after`` the worker exits once the trainer has stored that
+    step's checkpoint (``crash_wait``), once (a marker file remembers
+    it)."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import models, parallel, train
+    from ray_tpu_torch.ops import attention as ops
+    from ray_tpu_torch.util import metrics
+    # no TF32, as main() sets it (a function here: the loop is pickled
+    # by value, and torch.backends.cudnn is a module object pickle refuses)
+    torch.set_float32_matmul_precision("highest")
+    device, B, L = config["device"], config["B"], config["L"]
+    cfg = recipe_cfg(models, config["name"])
+    if config["n_layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=config["n_layers"])
+    prof = train.step_profiler()
+    model, init_fn, step_fn = train_fns(
+        models, parallel, cfg, device, B, L, config["loss_chunk"],
+        parallel.adafactor(config["lr"]), profiler=prof)
+    state = init_fn(torch.Generator(device=device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(3))
+    resumed = train.get_checkpoint()
+    if resumed is not None:
+        saved = torch.load(os.path.join(resumed.to_directory(), "state.pt"),
+                           map_location=device)
+        model.load_state_dict(saved["model"])
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step = saved["step"]
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    while state.step < config["steps"]:
+        before = read_counts(ops)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, tokens)
+        dt = time.perf_counter() - t0
+        report = {
+            "step": state.step, "loss": m["loss"].item(),
+            "grad_norm": m["grad_norm"].item(), "step_s": dt,
+            "launches": {k: c - before[k]
+                         for k, c in read_counts(ops).items()},
+            "profile": dict(prof.last), "flops": prof.flops,
+            "model_flops": step_model_flops(model, B, L),
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if device == "cuda" else None),
+            "gpu_ids": rt.get_gpu_ids(),
+            "mask": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "resumed": resumed is not None, "t_end": time.time()}
+        ckpt = None
+        if config["checkpoint"]:
+            with tempfile.TemporaryDirectory() as d:
+                torch.save({"model": model.state_dict(),
+                            "optimizer": state.optimizer.state_dict(),
+                            "step": state.step}, os.path.join(d, "state.pt"))
+                ckpt = train.Checkpoint.from_directory(d)
+        train.report(report, checkpoint=ckpt)
+        marker = config.get("crash_marker")
+        if state.step == config.get("crash_after") and \
+                not os.path.exists(marker):
+            deadline = time.monotonic() + 300
+            while not os.path.exists(config["crash_wait"]):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the trainer never stored the "
+                                       "checkpoint")
+                time.sleep(0.05)
+            with open(marker, "w") as f:
+                f.write(repr(time.time()))
+            os._exit(1)
+    # the last step's gauges and spans reach the GCS before the executor
+    # kills this actor
+    metrics.push_once()
+    from ray_tpu_torch._private import events
+    events.flush()
+
+
+def _fit(rt, train, config, tmp, name, **run):
+    res = train.TorchTrainer(
+        recipe_worker_loop, train_loop_config=config,
+        scaling_config=train.ScalingConfig(
+            num_workers=1, use_gpu=config["device"] == "cuda"),
+        run_config=train.RunConfig(storage_path=tmp, name=name,
+                                   **run)).fit()
+    if res.error is not None:
+        fail(f"train executor ({name}): {res.error!r}")
+    return res
+
+
+def train_executor_main(rt, models, train, card, tmp, recipe_steps, config):
+    """Phase 17 (a): phase 7's recipe at full size in a num_gpus=1 train
+    worker. Returns the worker's kernel launches."""
+    from ray_tpu_torch.util import state as state_api
+    device, steps = config["device"], config["steps"]
+    B, L = config["B"], config["L"]
+    t0 = time.perf_counter()
+    res = _fit(rt, train, dict(config, checkpoint=False), tmp, "recipe")
+    fit_s = time.perf_counter() - t0
+    hist = res.metrics_history
+    if [h["step"] for h in hist] != list(range(1, steps + 1)):
+        fail(f"train executor: reported steps {[h['step'] for h in hist]}")
+    n = (config["n_layers"] or models.MODEL_REGISTRY[config["name"]]
+         .n_layers) if device == "cuda" else 0
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    launches = {k: 0 for k in want}
+    for h, (loss, gnorm, s7) in zip(hist, recipe_steps):
+        same = h["loss"] == loss and h["grad_norm"] == gnorm
+        print(f"train executor step {h['step']}: loss {h['loss']!r} "
+              f"grad_norm {h['grad_norm']!r} (phase 7: {loss!r} {gnorm!r}, "
+              f"bitwise {same}), {h['step_s'] * 1e3:.1f} ms ({h['step_s'] / s7:.3f}"
+              f"x phase 7's {s7 * 1e3:.1f} ms), launches {h['launches']}, "
+              f"profile {profile_fields(h['profile'])}", flush=True)
+        if not same:
+            fail(f"train executor step {h['step']}: loss/grad_norm differ "
+                 f"from phase 7's in-process step")
+        if h["launches"] != want:
+            fail(f"train executor step {h['step']} launched {h['launches']},"
+                 f" want {want}")
+        if device == "cuda" and (h["gpu_ids"] != ["0"] or h["mask"] != "0"):
+            fail(f"train worker GPU ids {h['gpu_ids']}, mask {h['mask']}")
+        for k in want:
+            launches[k] += h["launches"][k]
+    last = hist[-1]
+    gap = last["flops"] / last["model_flops"] - 1
+    steady = float(np.median([h["step_s"] for h in hist[1:]]))
+    p7 = float(np.median([s for _, _, s in recipe_steps[1:]]))
+    print(f"train executor: {steps} steps of {B}x{L} in a num_gpus=1 worker, "
+          f"fit {fit_s:.1f} s; step {steady * 1e3:.1f} ms (median of steps "
+          f"2-{steps}) vs phase 7's {p7 * 1e3:.1f} ms ({steady / p7:.3f}x); "
+          f"peak memory allocated {last['peak_gib']} GiB; wrap_step's "
+          f"FLOPs {last['flops'] / 1e12:.4f} TFLOP per step vs "
+          f"step_model_flops {last['model_flops'] / 1e12:.4f} "
+          f"({gap * 100:+.2f}%); MFU {last['profile'].get('mfu')} "
+          f"(compute {last['profile'].get('mfu_compute')}) [{card}]",
+          flush=True)
+    # the profiler's gauges, read back from the GCS time-series plane
+    got = {}
+    for metric, tags, key in (
+            ("runtime_train_step_mfu", None, "mfu"),
+            ("runtime_train_step_mfu_compute", None, "mfu_compute"),
+            ("runtime_train_step_phase_ms", {"phase": "compute"},
+             "compute_ms"),
+            ("runtime_train_step_phase_ms", {"phase": "host_gap"},
+             "host_gap_ms"),
+            ("runtime_train_step_phase_ms", {"phase": "data_wait"},
+             "data_wait_ms")):
+        q = state_api.query_metrics(metric, window=600, agg="latest",
+                                    tags=tags)
+        got[key] = (q.get("value"), last["profile"].get(key))
+    print(f"train executor: query_metrics (latest) vs the worker's last "
+          f"record: {got}", flush=True)
+    if any(a != b for a, b in got.values()):
+        fail(f"the GCS time-series plane disagrees with the worker's "
+             f"profiler: {got}")
+    return launches
+
+
+def train_executor_restart(rt, train, models, parallel, card, tmp, config,
+                           n_layers, steps=4, crash_after=2, keep=2):
+    """Phase 17 (b): the recipe cut to n_layers, a checkpoint per step, the
+    worker killed once the trainer stored step crash_after's checkpoint;
+    the gang restarts from the latest checkpoint and its steps must equal
+    an uninterrupted run's. Returns the workers' kernel launches."""
+    device, B, L = config["device"], config["B"], config["L"]
+    config = dict(config, n_layers=n_layers, steps=steps, checkpoint=True,
+                  crash_after=crash_after,
+                  crash_marker=os.path.join(tmp, "crashed"),
+                  crash_wait=os.path.join(tmp, "restart", "checkpoints",
+                                          f"checkpoint_{crash_after:06d}"))
+    # the uninterrupted run, in this process
+    cfg = dataclasses.replace(recipe_cfg(models, config["name"]),
+                              n_layers=n_layers)
+    model, init_fn, step_fn = train_fns(
+        models, parallel, cfg, device, B, L, config["loss_chunk"],
+        parallel.adafactor(config["lr"]))
+    st = init_fn(torch.Generator(device=device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(3))
+    want = []
+    for _ in range(steps):
+        st, m = step_fn(st, tokens)
+        want.append((m["loss"].item(), m["grad_norm"].item()))
+    del model, st, m
+    release(device)
+    t0 = time.perf_counter()
+    res = _fit(rt, train, config, tmp, "restart",
+               failure_config=train.FailureConfig(max_failures=1),
+               checkpoint_config=train.CheckpointConfig(num_to_keep=keep))
+    fit_s = time.perf_counter() - t0
+    hist = res.metrics_history
+    with open(config["crash_marker"]) as f:
+        crashed_at = float(f.read())
+    resumed = [h for h in hist if h["resumed"]]
+    got = [(h["loss"], h["grad_norm"]) for h in hist]
+    steps_seen = [h["step"] for h in hist]
+    ckpts = sorted(os.listdir(os.path.join(tmp, "restart", "checkpoints")))
+    recovery = resumed[0]["t_end"] - resumed[0]["step_s"] - crashed_at \
+        if resumed else None
+    print(f"train executor (b): {n_layers} layers, {steps} steps, crash "
+          f"after step {crash_after}: reported steps {steps_seen}, resumed "
+          f"{[h['step'] for h in resumed]}, losses {[g[0] for g in got]} vs "
+          f"uninterrupted {[w[0] for w in want]}; recovery (crash to the "
+          f"resumed worker's first step) {recovery:.2f} s, fit {fit_s:.1f} "
+          f"s; checkpoints kept {ckpts} (num_to_keep {keep}) [{card}]",
+          flush=True)
+    if steps_seen != list(range(1, crash_after + 1)) + list(
+            range(crash_after + 1, steps + 1)) or not resumed:
+        fail(f"train executor (b): steps {steps_seen}, resumed {resumed}")
+    if got != want:
+        fail("train executor (b): the resumed steps differ from the "
+             "uninterrupted run")
+    if len(ckpts) != keep:
+        fail(f"train executor (b): {len(ckpts)} checkpoints kept, want "
+             f"{keep}")
+    return {k: sum(h["launches"][k] for h in hist) for k in KERNELS}
+
+
+def train_executor_timeline(rt, card, tmp):
+    """Phase 17 (c): the chrome JSON holds this process's train.fit span and
+    train.report instants, the worker's train_step.step spans and the
+    runtime_train_step_mfu counter track."""
+    path = rt.timeline(os.path.join(tmp, "timeline.json"))
+    with open(path) as f:
+        evs = json.load(f)
+    fit_spans = [e for e in evs if e["name"] == "train.fit"
+                 and e["ph"] == "X"]
+    reports = [e for e in evs if e["name"] == "train.report"
+               and e["ph"] == "i"]
+    steps = [e for e in evs if e["name"] == "train_step.step"
+             and e["ph"] == "X" and "mfu" in e["args"]
+             and "compute_ms" in e["args"]]
+    mfu_track = [e for e in evs if e["ph"] == "C"
+                 and e["name"] == "runtime_train_step_mfu"]
+    print(f"train executor (c): timeline {len(evs)} events; train.fit "
+          f"{len(fit_spans)}, train.report {len(reports)}, train_step.step "
+          f"{len(steps)} (mfu {[e['args']['mfu'] for e in steps]}), "
+          f"runtime_train_step_mfu counter samples {len(mfu_track)} [{card}]",
+          flush=True)
+    if not (fit_spans and reports and steps and mfu_track):
+        fail("train executor (c): the timeline lacks a train.fit span, "
+             "train.report instants, train_step.step spans or the "
+             "runtime_train_step_mfu track")
+
+
+def run_train_executor(models, parallel, train, card, recipe_steps,
+                       device="cuda", name="tpu-3b", n_layers=None, B=4,
+                       L=1024, steps=5, loss_chunk=256, lr=3e-4,
+                       restart_layers=2):
+    """Phase 17: the train executor on the card. Returns the flash
+    launches counted in the train workers. recipe_steps are phase 7's
+    (loss, grad_norm, seconds) per step; n_layers cuts (a)'s model (a
+    rehearsal's), restart_layers (b)'s."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train_smoke_")
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=(32 if device == "cuda" else 1) * 2 ** 30)
+    session = rt._context.node.session_name
+    print(f"train executor: init {time.perf_counter() - t0:.2f} s (session "
+          f"{session})", flush=True)
+    config = dict(device=device, name=name, n_layers=n_layers, B=B, L=L,
+                  steps=steps, loss_chunk=loss_chunk, lr=lr)
+    try:
+        t_part = time.perf_counter()
+        launches = train_executor_main(rt, models, train, card, tmp,
+                                       recipe_steps[:steps], config)
+        print(f"train executor (a): {time.perf_counter() - t_part:.1f} s",
+              flush=True)
+        t_part = time.perf_counter()
+        for k, n in train_executor_restart(rt, train, models, parallel, card,
+                                           tmp, config,
+                                           restart_layers).items():
+            launches[k] += n
+        print(f"train executor (b): {time.perf_counter() - t_part:.1f} s",
+              flush=True)
+        train_executor_timeline(rt, card, tmp)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left, shm = session_left(session)
+    print(f"train executor (d): after shutdown, the session's processes "
+          f"{left}, /dev/shm files {shm}; phase 17 "
+          f"{time.perf_counter() - t_phase:.1f} s, worker launches "
+          f"{launches} [{card}]", flush=True)
+    if left or shm:
+        fail("the train executor left processes or shared-memory files "
+             "behind")
     return launches
 
 
@@ -3281,14 +3683,15 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     run_recipe_parity(models, parallel)
-    recipe_counts, recipe_step_s = run_recipe(models, parallel, ops, card)
+    recipe_counts, recipe_step_s, recipe_steps = run_recipe(
+        models, parallel, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
     feature_counts = run_engine_features(models, inference, ops, card)
     moe_serve_launches = run_moe_serving(models, inference, ops, card)
     run_recipe_parity(models, parallel, name="mixtral-8x7b")
-    moe_train_counts, _ = run_recipe(models, parallel, ops, card,
-                                  name="mixtral-8x7b", n_layers=4)
+    moe_train_counts, _, _ = run_recipe(models, parallel, ops, card,
+                                        name="mixtral-8x7b", n_layers=4)
     gc.collect()
     torch.cuda.empty_cache()
     run_moe_holds(models, parallel, inference, ops, card)
@@ -3307,17 +3710,23 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     serve_counts = run_serve(models, inference, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    executor_counts = run_train_executor(models, parallel, train, card,
+                                         recipe_steps)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)
                                      + moe_train_counts[name]
                                      + sum(c[name] for c in mesh_counts)
                                      + pipeline_counts[name]
-                                     + runtime_counts[name])
+                                     + runtime_counts[name]
+                                     + executor_counts[name])
         records[name]["mesh_launches"] = sum(c[name] for c in mesh_counts)
         records[name]["pipeline_launches"] = pipeline_counts[name]
         records[name]["actor_launches"] = runtime_counts[name]
         records[name]["serve_launches"] = serve_counts[name]
+        records[name]["train_worker_launches"] = executor_counts[name]
     records["flash_fwd"]["launches"] += (gen_launches + eng_launches
                                          + moe_serve_launches)
     for name in KERNELS:

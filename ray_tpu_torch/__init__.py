@@ -326,11 +326,28 @@ def cancel(ref: ObjectRef, *, force: bool = False):
 
 
 def timeline(filename: Optional[str] = None):
-    """Export the unified chrome://tracing timeline (reference: `ray
-    timeline`). Needs ``util/tracing.py``, which is not ported yet."""
-    raise NotImplementedError(
-        "timeline() needs util/tracing.py, which is not ported yet "
-        "(ROADMAP.md, Queue A item A3d)")
+    """Export the unified timeline — task executions PLUS the flight
+    recorder's runtime events (engine steps, spills, serve phases, train
+    steps as per-subsystem tracks) PLUS gauge time-series as counter
+    tracks (slot occupancy, MFU) — as a chrome://tracing JSON (reference:
+    `ray timeline`, python/ray/_private/state.py chrome trace export).
+    With ``filename`` the JSON is written there and the name returned;
+    else the event list is returned."""
+    import json
+
+    from ray_tpu_torch._private import events as _events
+    from ray_tpu_torch.util.metrics import push_once as _push_metrics
+    from ray_tpu_torch.util.tracing import task_events_to_chrome
+    _events.flush()     # this process's buffered spans make the export
+    _push_metrics()     # ...and its freshest gauge samples
+    rows = _get_worker().gcs_call("list_task_events", limit=20000)
+    series = _get_worker().gcs_call("dump_metric_series", kinds=["gauge"])
+    events = task_events_to_chrome(rows, gauge_series=series)
+    if filename:
+        with open(filename, "w") as f:
+            json.dump(events, f)
+        return filename
+    return events
 
 
 def get_actor(name: str, namespace: str = "default") -> ActorHandle:

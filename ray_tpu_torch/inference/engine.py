@@ -27,10 +27,17 @@ Counterpart of ``ray_tpu/inference/engine.py``, on one device:
 
 Sampling is shared with ``make_generate_fn`` (models/sampling.py).
 ``on_step`` (set by ``inference/api.py``'s ``LLMDeployment``) is called
-with ``stats()`` after every step. A sharded engine (``mesh``), step
-profiling and flight-recorder events are not ported yet: they wait for
-Serve's sharded replicas and the step profiler (ROADMAP.md, Queue A items
-A3g-2 and A3d).
+with ``stats()`` after every step. With ``step_profile`` each decode step
+is attributed by a ``StepProfiler("decode_step")`` (``util/profiling.py``)
+from analytic FLOPs and bytes (``runtime_decode_step_*`` gauges). The
+flight recorder gets the engine's spans, as in the JAX engine: an
+``engine.slot`` span per request from admission to eviction (parented
+under the submitter's trace context), ``engine.prefill`` per chunk,
+``engine.decode`` per step with its attribution, and the
+``engine.prefix_hit`` and ``engine.evict`` instants; eager PyTorch
+compiles nothing, so there is no ``engine.compile`` instant. A sharded
+engine (``mesh``) is not ported yet: it waits for Serve's sharded replicas
+(ROADMAP.md, Queue A item A3g-2).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch._private import events
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.inference import kv_quant as kvq
 from ray_tpu_torch.inference import spec_decode as spec_lib
@@ -89,6 +97,9 @@ class EngineConfig:
     prefix_cache_slots: extra cache-only rows of the slot shape, carved
         into prefill_chunk-aligned blocks that hold completed prefill
         spans (0 disables the prefix cache).
+    step_profile: per-step time/FLOP attribution of the decode step
+        (``util/profiling.py``): runtime_decode_step_mfu and the
+        compute/host-gap/data-wait phase gauges.
     """
     n_slots: int = 4
     max_len: int = 512
@@ -101,6 +112,7 @@ class EngineConfig:
     cache_dtype: Any = None
     kv_quant: str = "none"
     prefix_cache_slots: int = 0
+    step_profile: bool = True
 
 
 class InferenceEngine:
@@ -218,6 +230,21 @@ class InferenceEngine:
         self.remote_prefix_tokens = 0
         # called with stats() after every step (LLMDeployment's gauges)
         self.on_step: Optional[Callable[[Dict], None]] = None
+        # flight-recorder root for engine-owned work that belongs to no
+        # single request (multi-request decode batches)
+        self._trace_id = events.new_trace_id()
+        # step attribution: decode FLOPs and bytes are analytic
+        self.profiler = None
+        if cfg.step_profile:
+            from ray_tpu_torch.util import profiling
+            params = list(model.parameters())
+            self._n_params = int(sum(p.numel() for p in params))
+            self._param_bytes = float(sum(p.numel() * p.element_size()
+                                          for p in params))
+            self._kv_elt_bytes = float(
+                torch.empty((), dtype=dtype).element_size())
+            self.profiler = profiling.StepProfiler(
+                "decode_step", emit_span=False)
 
     def _zeros(self, shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -299,7 +326,8 @@ class InferenceEngine:
         req = Request(tokens=tokens, max_new_tokens=int(max_new_tokens),
                       temperature=temperature, eos_id=eos_id,
                       deadline_s=(time.monotonic() + deadline_s
-                                  if deadline_s is not None else None))
+                                  if deadline_s is not None else None),
+                      trace_ctx=events.current_context())
         with self._work:
             if self._stop:
                 raise RuntimeError("engine is stopped")
@@ -366,14 +394,16 @@ class InferenceEngine:
         prefill chunks (admission), advance every occupied slot. Returns
         True if any device work ran."""
         with self._lock:
+            t_iter0 = time.perf_counter()
             now = time.monotonic()
             for st in self.sched.reap(now):
                 self._scratch.pop(st.rid, None)
                 self._draft_scratch.pop(st.rid, None)
             did = False
             for ch in self.sched.plan_prefill():
-                self._run_prefill_chunk(ch)
+                self._run_prefill_chunk(ch, now)
                 did = True
+            t_admit = time.perf_counter()
 
             # capacity eviction BEFORE the step: a full slot has nowhere
             # to write its next token
@@ -382,10 +412,20 @@ class InferenceEngine:
                     self.sched.evict(st, FINISH_LENGTH)
             active = self.sched.active_states()
             if active:
+                dspan = self._decode_span(active)
+                t_dec0 = time.perf_counter()
                 if self._spec is not None:
-                    self._emit_spec(active)
+                    out, acc = self._spec_decode()
                 else:
                     toks = self._decode()
+                t_dec1 = time.perf_counter()
+                # capture before the emit: an evicted state's slot is None
+                # by the time the profiler reads it
+                slots = [st.slot for st in active]
+                n0 = self.tokens_generated
+                if self._spec is not None:
+                    self._emit_spec(active, out, acc)
+                else:
                     now = time.monotonic()
                     for st in active:
                         slot = st.slot
@@ -393,6 +433,12 @@ class InferenceEngine:
                         self._last_tok[slot] = toks[slot]
                         self.tokens_generated += 1
                         self.sched.decode_emit(st, int(toks[slot]), now)
+                attribution = {}
+                if self.profiler is not None:
+                    attribution = self._profile_decode(
+                        [int(self._lengths[s]) for s in slots],
+                        t_iter0, t_admit, t_dec0, t_dec1)
+                dspan.end(tokens=self.tokens_generated - n0, **attribution)
                 did = True
             self.steps += 1
             if self.on_step is not None:
@@ -402,10 +448,50 @@ class InferenceEngine:
                     pass
             return did
 
-    def _emit_spec(self, active):
+    def _decode_span(self, active):
+        """The step's engine.decode span. Decode is a BATCH phase: when one
+        request occupies the engine the span adopts that request's trace;
+        with several co-resident traces it records under the engine's own
+        root trace with slot attribution instead of picking a favorite."""
+        traces = {st.span.trace_id for st in active if st.span is not None}
+        if len(active) == 1 and active[0].span is not None:
+            d_trace = active[0].span.trace_id
+            d_parent = active[0].span.span_id
+        elif len(traces) == 1:
+            d_trace, d_parent = next(iter(traces)), None
+        else:
+            d_trace, d_parent = self._trace_id, None
+        return events.start_span(
+            "engine.decode", category="engine", trace_id=d_trace,
+            parent_span_id=d_parent, step=self.steps,
+            slots_active=len(active),
+            slots_occupied=self.sched.occupancy(),
+            queue_depth=self.sched.queue_depth())
+
+    def _profile_decode(self, kv_lens, t_iter0, t_admit, t_dec0, t_dec1):
+        """Per-step attribution: decode compute vs prefill/admission work
+        ("data wait": tokens can't advance while it runs) vs host gap
+        (scheduler bookkeeping + idle between steps). Returns the attrs
+        attached to the engine.decode span."""
+        from ray_tpu_torch.util import profiling
+        mcfg = self.model.cfg
+        flops = profiling.decode_step_flops(
+            self._n_params, mcfg.n_layers, mcfg.n_heads, mcfg.head_dim,
+            kv_lens)
+        nbytes = profiling.decode_step_bytes(
+            self._param_bytes, mcfg.n_layers, mcfg.n_kv_heads,
+            mcfg.head_dim, kv_lens, self._kv_elt_bytes)
+        rec = self.profiler.observe(
+            compute_s=t_dec1 - t_dec0, data_s=t_admit - t_iter0,
+            begin_t=t_iter0, end_t=t_dec1, tokens=len(kv_lens),
+            flops=flops, bytes_accessed=nbytes)
+        return {k: rec[k] for k in ("mfu", "mfu_compute", "compute_ms",
+                                    "host_gap_ms", "data_wait_ms",
+                                    "roofline_bound") if k in rec}
+
+    def _emit_spec(self, active, out, acc):
         """Accepted prefix + one bonus token per slot, branching on the
         accept counts as host values."""
-        out, acc = self._spec_decode()
         now = time.monotonic()
         for st in active:
             slot = st.slot
@@ -422,9 +508,22 @@ class InferenceEngine:
                 if st.slot is None:
                     break    # finished (EOS / max tokens)
 
-    def _run_prefill_chunk(self, ch: PrefillChunk):
+    def _run_prefill_chunk(self, ch: PrefillChunk, now: float):
         cfg = self.config
         st = ch.state
+        if st.span is None:
+            # first chunk == admission: open the engine-slot span, parented
+            # under the submitting request's propagated context (Serve
+            # path) or rooting its own trace (direct engine use)
+            ctx = st.request.trace_ctx
+            st.span = events.start_span(
+                "engine.slot", category="engine",
+                trace_id=ctx[0] if ctx else None,
+                parent_span_id=ctx[1] if ctx else None,
+                rid=st.rid, slot=st.slot,
+                prompt_tokens=len(st.request.tokens),
+                queue_wait_ms=round(
+                    (now - st.handle.submitted_t) * 1e3, 3))
         sk_sv = self._scratch.get(st.rid)
         if sk_sv is None:
             sk_sv = (self._zeros(self._scratch_shape, self._cache_dtype),
@@ -450,8 +549,14 @@ class InferenceEngine:
         chunk = np.zeros((1, cfg.prefill_chunk), np.int64)
         chunk[0, :ch.length] = prompt[ch.start:ch.start + ch.length]
         chunk = torch.from_numpy(chunk).to(self.device)
+        pspan = events.start_span(
+            "engine.prefill", category="engine",
+            trace_id=st.span.trace_id, parent_span_id=st.span.span_id,
+            rid=st.rid, slot=st.slot, offset=ch.start, length=ch.length,
+            is_last=ch.is_last, slots_occupied=self.sched.occupancy())
         logits = self._prefill(self.model, sk, sv, chunk, ch.start)
         tok = self._sample_first(logits, ch.length, st.temperature)
+        pspan.end()
         if self._spec is not None:
             self._prefill(self._draft_model, *dk_dv, chunk, ch.start)
         if ch.is_last:
@@ -517,6 +622,12 @@ class InferenceEngine:
         for i, node in enumerate(st.prefix_nodes):
             bslot, boff = self._block_at(node.block)
             self._load_span(sk, sv, bslot, boff, i * C)
+        events.record_instant(
+            "engine.prefix_hit", category="engine",
+            trace_id=st.span.trace_id if st.span else None,
+            parent_span_id=st.span.span_id if st.span else None,
+            rid=st.rid, slot=st.slot, matched_tokens=st.prefix_matched,
+            prompt_tokens=len(st.request.tokens))
         self.sched.unpin_prefix(st)
 
     def _populate_prefix(self, st, sk, sv):

@@ -1,7 +1,6 @@
 """Request scheduling for the continuous-batching engine.
 
-The port's own copy of ``ray_tpu/inference/scheduler.py`` (host-only),
-without the flight-recorder spans and trace context.
+The port's own copy of ``ray_tpu/inference/scheduler.py`` (host-only).
 
 The scheduler owns everything about a request EXCEPT the tensors: the
 FIFO admission queue, the per-step prefill-token budget (prefill must
@@ -45,6 +44,11 @@ class Request:
     # request past it fails with FINISH_DEADLINE instead of occupying a
     # slot it can no longer use
     deadline_s: Optional[float] = None
+    # (trace_id, span_id) captured at submit: the flight recorder
+    # parents this request's engine-slot span under the submitting
+    # task/request span, so a Serve call renders proxy -> replica ->
+    # engine-slot as one trace
+    trace_ctx: Optional[Any] = None
 
 
 class RequestHandle:
@@ -162,6 +166,7 @@ class RequestState:
     prefill_pos: int = 0          # prompt tokens already prefilled
     generated: int = 0
     last_token: int = 0
+    span: Optional[Any] = None    # flight-recorder engine.slot span
     # radix-cache admission state: matched prefix length (its prefill is
     # skipped: the engine copies the blocks instead) and the pinned trie
     # nodes backing it (released once the copy lands in scratch)
@@ -317,12 +322,26 @@ class Scheduler:
                  error: Optional[BaseException] = None):
         st.status = "FINISHED"
         self.unpin_prefix(st)
+        freed_slot = st.slot
         if st.slot is not None:
             self._active.pop(st.slot, None)
             self._free_slots.append(st.slot)
             self._free_slots.sort()
             st.slot = None
         st.handle._finish(reason, now, error)
+        if st.span is not None:
+            # the engine-slot span covers admission -> eviction; the
+            # finish reason and token count ride as attributes, and an
+            # eviction instant marks the exact slot-release point
+            from ray_tpu_torch._private import events
+            events.record_instant(
+                "engine.evict", category="engine",
+                trace_id=st.span.trace_id,
+                parent_span_id=st.span.span_id,
+                slot=freed_slot, reason=reason)
+            st.span.end(finish_reason=reason,
+                        tokens_generated=st.generated)
+            st.span = None
 
     # --------------------------------------------------------- admission
     def plan_prefill(self) -> List[PrefillChunk]:

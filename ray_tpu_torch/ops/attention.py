@@ -16,18 +16,88 @@ operand TMA cannot read: see ``tma_layout_error``; fp32 keeps FMA code
 that takes any strides with a contiguous head dim. Each kernel's wrapper
 (``flash_attention_fwd``, ``flash_attention_bwd_dq``,
 ``flash_attention_bwd_dkv``) counts its launches in ``.launches``.
+
+Each wrapper also reports its call's FLOPs (``attention_flops``) to the
+listeners a step's FLOP count registers (``util/profiling.count_flops``):
+a dispatch mode sees neither a ctypes launch nor a causal mask, and on the
+CPU it would count the plain version's unmasked products, which
+``plain_running`` tells it to skip.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
+
+
+# what a kernel computes per (query, key) pair its mask keeps: 2*D FLOPs
+# for each product: s and o in the forward; s, dp and dq for dQ; s, dp,
+# dv and dk for dK/dV
+KERNEL_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+
+_flop_listeners: List[Callable[[float], None]] = []
+# >0 while a plain version runs with listeners registered (every thread:
+# the autograd engine runs a CUDA backward on a thread of its own)
+_plain_depth = 0
+
+
+def kept_pairs(B: int, Lq: int, Lk: int, H: int, causal: bool) -> float:
+    """(query, key) pairs the mask keeps, over batch and query heads: row i
+    of a causal call sees keys 0..i."""
+    if not causal:
+        return float(B * H * Lq * Lk)
+    n = min(Lq, Lk)
+    return float(B * H * (n * (n + 1) // 2 + (Lq - n) * Lk))
+
+
+def attention_flops(kernel: str, q, k, causal: bool) -> float:
+    """FLOPs of one call of ``kernel`` on q [B,Lq,H,D], k [B,Lk,Hkv,D]."""
+    B, Lq, H, D = q.shape
+    return (2.0 * D * KERNEL_PRODUCTS[kernel]
+            * kept_pairs(B, Lq, k.shape[1], H, causal))
+
+
+def add_flop_listener(fn: Callable[[float], None]) -> None:
+    _flop_listeners.append(fn)
+
+
+def remove_flop_listener(fn: Callable[[float], None]) -> None:
+    _flop_listeners.remove(fn)
+
+
+def plain_running() -> bool:
+    """Whether a plain version runs for a counted call now."""
+    return _plain_depth > 0
+
+
+def _count(kernel: str, q, k, causal: bool) -> None:
+    if _flop_listeners:
+        flops = attention_flops(kernel, q, k, causal)
+        for fn in list(_flop_listeners):
+            fn(flops)
+
+
+@contextlib.contextmanager
+def _plain(kernel: str, q, k, causal: bool):
+    """Around a plain version: count the call, and hide its own products
+    from a FLOP counter."""
+    global _plain_depth
+    if not _flop_listeners:
+        yield
+        return
+    _count(kernel, q, k, causal)
+    _plain_depth += 1
+    try:
+        yield
+    finally:
+        _plain_depth -= 1
 
 
 def mha_reference(q, k, v, causal: bool = True, q_offset: int = 0,
@@ -211,7 +281,8 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
     scale = float(scale if scale is not None else D ** -0.5)
     devices = {q.device.type, k.device.type, v.device.type}
     if devices == {"cpu"}:
-        return flash_attention_fwd_reference(q, k, v, causal, scale)
+        with _plain("flash_fwd", q, k, causal):
+            return flash_attention_fwd_reference(q, k, v, causal, scale)
     if devices != {"cuda"}:
         raise ValueError(f"flash_attention takes CPU or CUDA tensors, got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -226,6 +297,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
             k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), B, H,
             Hkv, Lq, Lk, _strides(q, k, v, o), scale, int(causal))
     flash_attention_fwd.launches += 1
+    _count("flash_fwd", q, k, causal)
     return o, lse
 
 
@@ -325,8 +397,9 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
     D = q.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
     if _bwd_devices(q, k, v, do, lse, delta) == "cpu":
-        return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
-                                                causal, scale)
+        with _plain("flash_bwd_dq", q, k, causal):
+            return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                    causal, scale)
     if q.dtype == torch.bfloat16:
         _check_tma(q=q, k=k, v=v, do=do)
     B, Lq, H, _ = q.shape
@@ -337,6 +410,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
             delta.data_ptr(), dq.data_ptr(), B, H, Hkv, Lq, Lk,
             _strides(q, k, v, do, dq), scale, int(causal))
     flash_attention_bwd_dq.launches += 1
+    _count("flash_bwd_dq", q, k, causal)
     return dq
 
 
@@ -356,8 +430,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
     D = q.shape[-1]
     scale = float(scale if scale is not None else D ** -0.5)
     if _bwd_devices(q, k, v, do, lse, delta) == "cpu":
-        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                 causal, scale)
+        with _plain("flash_bwd_dkv", q, k, causal):
+            return flash_attention_bwd_dkv_reference(q, k, v, do, lse,
+                                                     delta, causal, scale)
     if q.dtype == torch.bfloat16:
         _check_tma(q=q, k=k, v=v, do=do)
     B, Lq, H, _ = q.shape
@@ -369,6 +444,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Lq,
             Lk, _strides(q, k, v, do, dk, dv), scale, int(causal))
     flash_attention_bwd_dkv.launches += 1
+    _count("flash_bwd_dkv", q, k, causal)
     return dk, dv
 
 

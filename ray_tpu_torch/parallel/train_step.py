@@ -25,8 +25,9 @@ parameter's logical axes, ``models/axes.py``), the batch is sharded over
 runs as a ``local_map`` island (``ops/dispatch.py``). Each gradient is
 pinned to its parameter's placements before the norm and the update (the
 reduction over the data axes that DTensor leaves pending). A mesh of one
-rank takes the same path. The step profiler (ROADMAP.md, Queue A item
-A3d) is not ported.
+rank takes the same path. With a ``profiler`` (``util/profiling.
+StepProfiler``) each step is attributed compute vs host gap and its FLOPs
+counted once per input shape (``StepProfiler.wrap_step``).
 """
 
 from __future__ import annotations
@@ -256,7 +257,8 @@ def make_train_fns(model: TransformerLM,
                    optimizer: Callable[..., torch.optim.Optimizer],
                    mesh: Optional[DeviceMesh] = None, rules=None,
                    batch_shape: Tuple[int, int] = (8, 512),
-                   loss_chunk: Optional[int] = None, device="cuda"
+                   loss_chunk: Optional[int] = None, device="cuda",
+                   profiler=None
                    ) -> Tuple[Callable, Callable, Optional[dict]]:
     """Returns (init_fn(generator) -> TrainState, step_fn(state, tokens,
     mask=None) -> (state, metrics), shardings): ``shardings`` is
@@ -280,8 +282,14 @@ def make_train_fns(model: TransformerLM,
     load-balancing loss, 0 for a dense model), ``grad_norm`` (global L2
     norm of the gradients before the update) and ``tokens`` (the loss's
     denominator), as whole tensors on every rank. ``loss_chunk`` turns on
-    ``chunked_cross_entropy``. It takes no profiler (see the module
-    docstring)."""
+    ``chunked_cross_entropy``.
+
+    profiler: an optional ``util.profiling.StepProfiler``; each call of
+    the returned step_fn then runs in ``profiler.step(tokens=B*(L+1))``
+    (the tokens it was given, as JAX counts them), its FLOPs counted on
+    the first call of each shape (``profiler.wrap_step``), and blocks on
+    the loss before the step ends, which sets the
+    ``runtime_<name>_mfu`` gauges and records a ``<name>.step`` span."""
     dev = resolve_device(device)
     cfg = model.cfg
     shardings = (state_shardings(model, mesh, rules) if mesh is not None
@@ -347,7 +355,19 @@ def make_train_fns(model: TransformerLM,
                        "moe_aux": _whole(aux).detach(), "grad_norm": gnorm,
                        "tokens": _whole(denom)}
 
-    return init_fn, step_fn, shardings
+    if profiler is None:
+        return init_fn, step_fn, shardings
+    profiled_step = profiler.wrap_step(step_fn)
+
+    def step_with_profile(state: TrainState, tokens, mask=None):
+        with profiler.step(tokens=int(torch.as_tensor(tokens).numel())) \
+                as sc:
+            sc.data_ready()
+            out = profiled_step(state, tokens, mask)
+            sc.block(out[1]["loss"])
+        return out
+
+    return init_fn, step_with_profile, shardings
 
 
 def make_infer_fns(model: TransformerLM, mesh: DeviceMesh, rules=None,

@@ -55,10 +55,11 @@ spec) loses that boundary; recovery then restores the survivors to the
 last sealed one, and the replay buffer keeps every step after it.
 
 The controller records the runtime's ``train.mpmd.*`` events and, while
-the runtime is initialised, sets the ``runtime_mpmd_*`` gauges. Not
-ported yet: the step profiler (``util/profiling.StepProfiler``, ROADMAP.md
-Queue A item A3d) and a gang's ``topology`` (the train executor's slice
-bundles, item A3c).
+the runtime is initialised, sets the ``runtime_mpmd_*`` gauges; with
+``MPMDConfig.step_profile`` a ``StepProfiler("mpmd")``
+(``util/profiling.py``) attributes each step, fed the FLOPs the stages
+count. Not ported yet: a gang's ``topology`` (slice bundles, ROADMAP.md
+Queue A item A3c-2).
 """
 
 from __future__ import annotations
@@ -74,12 +75,12 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
-from torch.utils.flop_counter import FlopCounterMode
 
 from ray_tpu_torch.parallel.pipeline import (OP_BWD, OP_FWD, make_schedule,
                                              op_chunk, peak_live_activations,
                                              pipeline_bubble_fraction)
 from ray_tpu_torch.train.config import FailureConfig
+from ray_tpu_torch.util.profiling import count_flops, shape_key
 
 # the JAX package's flag defaults (mpmd_replay_depth,
 # mpmd_barrier_deadline_s, mpmd_step_timeout_s)
@@ -206,6 +207,7 @@ class MPMDConfig:
     step_timeout_s: Optional[float] = None
     storage_path: Optional[str] = None      # durable shard checkpoints
     async_checkpoint: bool = True           # snapshot off the hot path
+    step_profile: bool = True               # runtime_mpmd_* attribution
 
     def resolved(self) -> "MPMDConfig":
         c = dataclasses.replace(self)
@@ -342,28 +344,15 @@ class MicrobatchReplayBuffer:
 
 # ------------------------------------------------------------ stage runtime
 
-def _shape_key(tree):
-    """What a program's call is keyed by: every tensor's shape, dtype and
-    device, and the structure around them."""
-    if isinstance(tree, torch.Tensor):
-        return ("T", tuple(tree.shape), tree.dtype, tree.device.type)
-    if isinstance(tree, dict):
-        return ("D",) + tuple((k, _shape_key(v)) for k, v in tree.items())
-    if isinstance(tree, (list, tuple)):
-        return ("L",) + tuple(_shape_key(v) for v in tree)
-    return ("V", type(tree).__name__)
-
-
 class _Program:
     """One stage program (forward, backward, accumulate or apply), keyed by
     its inputs as the JAX ``_AotProgram`` keys its compiled executables.
     Eager PyTorch compiles nothing: ``compile_count`` counts the distinct
     keys it was called with (the JAX program's traces), so 1 still means
     "no new input shape". With ``count_flops`` (the forward), the first
-    call of each key runs under ``FlopCounterMode``, whose count of the
-    aten products (matrix products, convolutions, SDPA; not a
-    hand-written kernel such as the flash attention's) is kept as
-    ``flops``."""
+    call of each key runs under ``util/profiling.count_flops``, whose
+    count of the aten products (and of attention, from its shapes) is
+    kept as ``flops``."""
 
     __slots__ = ("_fn", "_keys", "_count_flops", "flops")
 
@@ -378,15 +367,12 @@ class _Program:
         return len(self._keys)
 
     def __call__(self, *args):
-        key = _shape_key(args)
+        key = shape_key(args)
         if key in self._keys or not self._count_flops:
             self._keys.add(key)
             return self._fn(*args)
         self._keys.add(key)
-        counter = FlopCounterMode(display=False)
-        with counter:
-            out = self._fn(*args)
-        self.flops = float(counter.get_total_flops())
+        out, self.flops = count_flops(self._fn, *args)
         return out
 
 
@@ -502,7 +488,7 @@ class StageRuntime:
 
     def flops_per_step(self) -> float:
         """One full step's FLOPs for this chunk: per microbatch the
-        forward's products as ``FlopCounterMode`` counted them (0 before
+        forward's products as ``count_flops`` counted them (0 before
         the first forward), and three times that for the backward (its
         recompute, and the two products of each forward product's
         gradient). The accumulation and the optimizer count no
@@ -1407,9 +1393,8 @@ class GangStageHandle:
         ``resources`` alone."""
         if topology:
             raise NotImplementedError(
-                "a stage gang pinned to a slice topology needs the train "
-                "executor's slice bundles (train/backend_executor.py), "
-                "which are not ported yet (ROADMAP.md, Queue A item A3c)")
+                "a stage gang pinned to a slice topology is not ported yet "
+                "(ROADMAP.md, Queue A item A3c-2)")
         members = [
             ActorStageHandle.provision(
                 stage_idx, n_stages, n_microbatches, None, snapshot,
@@ -1603,6 +1588,7 @@ class MPMDPipelineTrainer:
         self._failures_left = self.failure_config.max_failures
         self.recoveries: List[Dict[str, Any]] = []
         self.history: List[Dict[str, Any]] = []
+        self.profiler = None
         self._markers: List[Optional[str]] = [None] * self.n_stages
         if marker_dir:
             os.makedirs(marker_dir, exist_ok=True)
@@ -1676,6 +1662,9 @@ class MPMDPipelineTrainer:
         last-stage target microbatches. Returns the run summary."""
         from ray_tpu_torch._private import events
         self.start()
+        if self.config.step_profile and self.profiler is None:
+            from ray_tpu_torch.util.profiling import StepProfiler
+            self.profiler = StepProfiler(name="mpmd", category="train")
         with events.record_span("train.mpmd.fit", category="train",
                                 n_stages=self.n_stages,
                                 n_virtual=self.n_virtual,
@@ -1684,11 +1673,20 @@ class MPMDPipelineTrainer:
             step = 0
             while step < n_steps:
                 step += 1
+                scope = self.profiler.step() if self.profiler else None
+                if scope is not None:
+                    scope.__enter__()
                 inputs, targets = data_fn(step)
                 self._check_shapes(inputs, targets)
                 self.replay.record(step, inputs, targets,
                                    keep_after=self._ckpt_step)
+                if scope is not None:
+                    scope.data_ready()
                 self._run_step_with_recovery(step, inputs, targets)
+                if scope is not None:
+                    scope.__exit__(None, None, None)
+                # checkpoints run outside the step's scope: their residue
+                # shows up as the next step's host gap
                 if step % self.config.checkpoint_every == 0:
                     self._checkpoint_all(step)
                 self._confirm_pending(timeout=0.0)
@@ -1775,11 +1773,13 @@ class MPMDPipelineTrainer:
         wall = time.perf_counter() - t0
         self.last_stage_metrics = metrics
         row: Dict[str, Any] = {"step": step, "wall_s": round(wall, 6)}
+        total_flops = 0.0
         total_compute = 0.0
         launches: Dict[str, int] = {}
         for s, per_chunk in enumerate(metrics):
             comp = sum(m.get("compute_s", 0.0) for m in per_chunk)
             total_compute += comp
+            total_flops += sum(m.get("flops", 0.0) for m in per_chunk)
             row[f"stage{s}_compute_s"] = round(comp, 6)
             row[f"stage{s}_bubble_fraction"] = round(
                 max(0.0, 1.0 - comp / wall), 4) if wall else 0.0
@@ -1791,6 +1791,8 @@ class MPMDPipelineTrainer:
         if launches:
             row["launches"] = launches
         self.history.append(row)
+        if self.profiler is not None and total_flops:
+            self.profiler.set_cost(total_flops)
         self._emit_stage_gauges(row, wall, total_compute)
         events.record_instant(
             "train.mpmd.step", category="train", step=step,

@@ -1,8 +1,9 @@
 """URI-addressed storage for the pipeline trainer's stage shards, the
-node manager's object spilling and the GCS's external store.
+train executor's checkpoints, the node manager's object spilling and the
+GCS's external store.
 
 Counterpart of ``ray_tpu/util/storage.py`` (without its directory
-upload and download): plain paths and ``file://`` map to the local
+upload): plain paths and ``file://`` map to the local
 filesystem through the standard library; any other scheme (gs://, s3://,
 memory://, ...) resolves through fsspec, imported only when such a URI
 is used.
@@ -113,6 +114,20 @@ def delete(uri: str) -> bool:
         return False
 
 
+def delete_dir(uri: str) -> bool:
+    scheme, path = _split(uri)
+    try:
+        if not scheme:
+            import shutil
+            shutil.rmtree(path, ignore_errors=True)
+        else:
+            fs, p = _fs(uri)
+            fs.rm(p, recursive=True)
+        return True
+    except (OSError, FileNotFoundError):
+        return False
+
+
 def listdir(uri: str) -> List[str]:
     """Child names (not full paths); empty list if missing."""
     scheme, path = _split(uri)
@@ -124,3 +139,29 @@ def listdir(uri: str) -> List[str]:
                       for x in fs.ls(p, detail=False))
     except (OSError, FileNotFoundError):
         return []
+
+
+def download_dir(uri: str, local_dir: str) -> None:
+    """Recursively copy a URI directory tree to a local directory."""
+    scheme, path = _split(uri)
+    os.makedirs(local_dir, exist_ok=True)
+    if not scheme:
+        import shutil
+        for name in os.listdir(path):
+            src = os.path.join(path, name)
+            dst = os.path.join(local_dir, name)
+            if os.path.isdir(src):
+                shutil.copytree(src, dst, dirs_exist_ok=True)
+            else:
+                shutil.copy2(src, dst)
+        return
+    fs, p = _fs(uri)
+    base = p.rstrip("/")
+    for info in fs.find(base):
+        rel = info[len(base):].lstrip("/")
+        dst = os.path.join(local_dir, *rel.split("/"))
+        os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+        with fs.open(info, "rb") as f:
+            data = f.read()
+        with open(dst, "wb") as f:
+            f.write(data)

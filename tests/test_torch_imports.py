@@ -249,3 +249,44 @@ def test_session_processes_run_port_modules():
             mods
     finally:
         rt.shutdown()
+
+
+# observability and the train executor: what a driver reading the state
+# API or a train worker whose loop needs no torch imports
+LIGHT_MODULES = ("ray_tpu_torch.train", "ray_tpu_torch.train.trainer",
+                 "ray_tpu_torch.train.backend_executor",
+                 "ray_tpu_torch.train.session",
+                 "ray_tpu_torch.train.checkpoint",
+                 "ray_tpu_torch.train.config",
+                 "ray_tpu_torch.util.profiling",
+                 "ray_tpu_torch.util.tracing", "ray_tpu_torch.util.state",
+                 "ray_tpu_torch.util.collective")
+
+
+def test_observability_and_train_executor_exist_and_load_no_torch():
+    """The names of the slice exist, ``timeline`` no longer raises for
+    want of a module, and importing the train executor, the profiler, the
+    tracing export, the state API and the collectives loads no torch (the
+    MPMD trainer loads on first touch, as in the JAX package)."""
+    import subprocess
+    import sys
+    code = ("import importlib, inspect, sys\n"
+            f"for m in {LIGHT_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'torch' not in sys.modules, 'torch'\n"
+            "import ray_tpu_torch\n"
+            "from ray_tpu_torch import train\n"
+            "from ray_tpu_torch.util import collective, profiling, state\n"
+            "for n in ('TorchTrainer', 'Result', 'ScalingConfig', "
+            "'RunConfig', 'CheckpointConfig', 'DataConfig', "
+            "'FailureConfig', 'Checkpoint', 'report', 'get_context', "
+            "'get_checkpoint', 'step_profiler', 'MPMDPipelineTrainer'):\n"
+            "    assert getattr(train, n) is not None, n\n"
+            "assert profiling.StepProfiler and profiling.decode_step_flops\n"
+            "assert state.list_nodes and state.query_metrics\n"
+            "assert collective.allreduce and collective.recv\n"
+            "src = inspect.getsource(ray_tpu_torch.timeline)\n"
+            "assert 'NotImplementedError' not in src\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

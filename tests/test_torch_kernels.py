@@ -242,3 +242,65 @@ def test_autograd_on_card_matches_plain_version(causal):
         assert launched == (1 if fn is ops.flash_attention else 0)
     for g, w, name in zip(*grads, ("dq", "dk", "dv")):
         torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-3, msg=name)
+
+
+def _counted_step(device):
+    """One step of a llama-debug-shaped recipe (bf16 weights, adafactor,
+    remat "dots", chunked cross-entropy) through make_train_fns with a
+    StepProfiler: (its FLOPs, the flash launches in the step)."""
+    import dataclasses
+
+    from ray_tpu_torch import models, parallel
+    from ray_tpu_torch.util.profiling import StepProfiler
+    cfg = dataclasses.replace(models.MODEL_REGISTRY["llama-debug"],
+                              param_dtype=torch.bfloat16, remat=True,
+                              remat_policy="dots")
+    prof = StepProfiler("card_probe", emit_span=False)
+    model = models.TransformerLM(cfg, device="meta")
+    init_fn, step_fn, _ = parallel.make_train_fns(
+        model, parallel.adafactor(1e-2), batch_shape=(2, 129),
+        loss_chunk=32, device=device, profiler=prof)
+    state = init_fn(torch.Generator(device=device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(1))
+    before = ops.flash_attention_fwd.launches
+    step_fn(state, tokens)
+    return prof.flops, ops.flash_attention_fwd.launches - before
+
+
+@pytest.mark.cuda
+def test_wrap_step_counts_the_same_on_card_and_cpu():
+    """StepProfiler.wrap_step's FLOPs of one recipe step are equal on the
+    card (the flash kernels, counted from their shapes) and on the CPU
+    (their plain versions, whose products the count skips), exactly:
+    both are sums of the same shape formulas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    card, launched = _counted_step("cuda")
+    cpu, _ = _counted_step("cpu")
+    assert launched == 4     # forward and recompute, 2 layers
+    assert card > 0 and card == cpu
+
+
+@pytest.mark.cuda
+def test_step_scope_block_waits_for_the_card():
+    """_StepScope.block returns only once the card has run the work that
+    produced the tensors it was given (a nested dict and list), and on
+    CPU tensors returns at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ray_tpu_torch.util.profiling import StepProfiler
+    prof = StepProfiler("card_block", emit_span=False)
+    x = torch.randn(4096, 4096, device="cuda")
+    with prof.step() as s:
+        s.data_ready()
+        y = x
+        for _ in range(20):
+            y = y @ x
+            y = y / y.norm()
+        s.block({"out": [y], "cpu": torch.ones(2)})
+        assert torch.cuda.current_stream().query()
+    assert prof.last["compute_ms"] > 0
+    with prof.step() as s:
+        s.block({"cpu": torch.ones(2)})
