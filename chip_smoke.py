@@ -158,9 +158,9 @@ Phases, each of which must pass (any failure exits non-zero):
     /dev/shm/raytpu_torch_* file may remain.
 15. A JSON line of the kernels (with each one's TFLOP/s, its share of the
     bound, whether it runs on the tensor cores and its launches on the
-    mesh's, the pipeline's, the actors', Serve's and the train worker's
-    paths), the card line again, and last the result. It is printed after
-    phase 17.
+    mesh's, the pipeline's, the actors', Serve's, the train worker's and
+    sharded serving's paths), the card line again, and last the result.
+    It is printed after phase 18.
 16. Serve on the card (ray_tpu_torch.serve, on a fresh runtime with a
     64 GiB store: every part's weights fit at once). (a)
     serve.start(http_port=0) and serve.run of an
@@ -214,11 +214,33 @@ Phases, each of which must pass (any failure exits non-zero):
     train_step.step spans with mfu and compute_ms, and the
     runtime_train_step_mfu counter track. (d) shutdown() must leave no
     process or arena of the session.
+18. Sharded serving on the card (ray_tpu_torch.serve.sharded, on a fresh
+    runtime), printed after phase 17 and before the kernels line. (a)
+    serve.start(http_port=0, grpc_port=0 where grpcio imports) and
+    serve.run(build_sharded_app("tpu-7b", num_hosts=1, ...)) at full width
+    and depth (phase 4's engine, phase 3's seeded init through params_fn
+    on the replica's card) on a num_gpus=1 replica whose engine runs in
+    lockstep over a one-card DTensor mesh (a world of one rank, NCCL):
+    the replica's GPU ids must equal its mask "0", its world and mesh must
+    be one rank, params_fn must run once; one token over HTTP (the first
+    answer, as phase 16's), then phase 4's six requests at once
+    over HTTP and then over a streaming handle, each stream held against
+    a one-shot forward; the ready time, TTFT and TPOT per request, the
+    replica's engine.decode spans from the timeline and its
+    last_stream_digest are printed. (c) Where grpcio imports, a generate
+    through the gRPC proxy's untyped ingress (serve.grpc_call) must give
+    the tokens of the same generate over a handle; where it does not, (c)
+    is left out and the smoke says so. The longest heartbeat silence is
+    printed, and after shutdown() no process or arena of the session may
+    remain. (b) Phase 4's requests through InferenceEngine() and then
+    InferenceEngine(mesh=<one-card mesh>) on the same model in this
+    process: the tokens must be equal. Phase 18 launches no flash kernel,
+    in the replica or in this process (sharded_serve_launches 0/0/0).
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
 Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
-9, 10, 12, each part of 13, 16 (b)) and read just after it; phase 14's stage
+9, 10, 12, each part of 13, 16 (b), 18 (b)) and read just after it; phase 14's stage
 actors and phase 17's train workers are fresh processes whose counts
 start at 0, and the trainer (the loop) sums what each reports per step; launches made to compare or time a
 kernel (2, 5, the remat checks of 7 and 10, 11, phase 12's no-mesh
@@ -3635,6 +3657,288 @@ def run_train_executor(models, parallel, train, card, recipe_steps,
     return launches
 
 
+# ------------------------------------------------------------- phase 18
+
+def _sharded_class():
+    """ShardedEngineReplica with what phase 18 reads from inside the
+    replica: its GPU ids and mask, its pid, its construction time and the
+    flash launches in its process. Made here, in a function, so the
+    runtime ships it by value."""
+    from ray_tpu_torch.serve.sharded import ShardedEngineReplica
+
+    class SmokeSharded(ShardedEngineReplica):
+        def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kwargs)
+            self.init_s = time.perf_counter() - t0
+
+        def probe(self):
+            import sys
+
+            import ray_tpu_torch as rt
+            ops = sys.modules.get("ray_tpu_torch.ops.attention")
+            launches = {name: getattr(ops, fn).launches for name, fn in (
+                ("flash_fwd", "flash_attention_fwd"),
+                ("flash_bwd_dq", "flash_attention_bwd_dq"),
+                ("flash_bwd_dkv", "flash_attention_bwd_dkv"))} if ops else {}
+            return {"ids": rt.get_gpu_ids(),
+                    "mask": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "pid": os.getpid(), "init_s": self.init_s,
+                    "mesh": [str(self.mesh.device_type),
+                             list(self.mesh.mesh_dim_names),
+                             self.mesh.size()],
+                    "world": self._world, "launches": launches}
+    return SmokeSharded
+
+
+def _decode_spans(rt, me):
+    """The engine.decode spans (ms) of the replicas' processes, from the
+    timeline."""
+    import tempfile
+    path = os.path.join(tempfile.mkdtemp(prefix="sharded_timeline_"),
+                        "timeline.json")
+    rt.timeline(path)
+    with open(path) as f:
+        evs = json.load(f)
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    return [e["dur"] / 1e3 for e in evs
+            if e.get("ph") == "X" and e["name"] == "engine.decode"
+            and e["tid"] != me]
+
+
+def _grpc_version():
+    """grpcio's version, or None where it does not import."""
+    try:
+        import grpc
+    except ImportError:
+        return None
+    return grpc.__version__
+
+
+def sharded_serve(rt, serve, models, card, cls, marks, device, name, engine,
+                  prompts, new, use_grpc):
+    """Phase 18 (a) and (c): build_sharded_app at num_hosts=1 on a
+    num_gpus=1 replica, phase 4's requests over HTTP and over a handle,
+    each stream held against a one-shot forward; a gRPC generate's tokens
+    equal a handle generate's. Returns the one-shot model for (b)."""
+    from ray_tpu_torch.serve.deployment import Application, Deployment
+    from ray_tpu_torch.serve.sharded import build_sharded_app
+    cfg = models.MODEL_REGISTRY[name]
+    gpus = {"num_gpus": 1} if device == "cuda" else {}
+    serve.start(http_port=0, grpc_port=0 if use_grpc else None)
+    (addrs,) = serve.proxies().values()
+    app = build_sharded_app(name, num_hosts=1, name="sharded",
+                            deployment_kwargs={"ray_actor_options": gpus},
+                            params_fn=_params_fn(cfg, marks, device),
+                            device=device, **engine)
+    # the same graph, with the replica's class replaced by its probing
+    # subclass
+    app = Application(Deployment(cls, app.deployment.name,
+                                 app.deployment.config), app.args,
+                      app.kwargs)
+    t0 = time.perf_counter()
+    handle = serve.run(app, name="sharded", route_prefix="/")
+    (replica,) = _replicas(handle, 1)
+    (info,) = _probe_all(rt, [replica])
+    ready_s = time.perf_counter() - t0
+    print(f"sharded serve (a): a num_hosts=1 ShardedEngineReplica of {name} "
+          f"({cfg.n_layers} layers, {cfg.dtype}) ready {ready_s:.2f} s after "
+          f"serve.run (construction {info['init_s']:.2f} s); pid "
+          f"{info['pid']}, GPU ids {info['ids']} mask {info['mask']!r}, "
+          f"mesh {info['mesh']}, world {info['world']} [{card}]",
+          flush=True)
+    if device == "cuda" and (info["ids"] != ["0"] or info["mask"] != "0"):
+        fail(f"sharded serve: the replica got ids {info['ids']} and mask "
+             f"{info['mask']!r}, want ['0'] and '0'")
+    if info["world"] != 1 or info["mesh"][2] != 1:
+        fail(f"sharded serve: want a world and a mesh of one rank, got "
+             f"{info['world']} and {info['mesh']}")
+    if _runs(marks) != 1:
+        fail(f"sharded serve: params_fn ran {_runs(marks)} times, want once")
+    # the first answer, one token over HTTP, as phase 16's: what a fresh
+    # replica's first batch pays (C7) stays out of the six requests' times
+    first = {}
+    _http_stream(f"http://{addrs['http']}/", {"prompt_tokens": [1, 2, 3],
+                                               "max_new_tokens": 1}, first, 0)
+    first_s = time.perf_counter() - t0
+    print(f"sharded serve (a): the first answer over HTTP (1 token) "
+          f"{first_s:.2f} s after serve.run, status {first[0]['status']} "
+          f"[{card}]", flush=True)
+    if first[0]["status"] != 200 or len(first[0]["tokens"]) != 1:
+        fail(f"sharded serve: the first HTTP answer was {first[0]}")
+    reqs = [(p.tolist(), n) for p, n in zip(prompts, new)]
+
+    def over_http(p, n, out, i):
+        _http_stream(f"http://{addrs['http']}/",
+                     {"prompt_tokens": p, "max_new_tokens": n}, out, i)
+
+    def over_a_handle(p, n, out, i):
+        _handle_stream(handle, p, n, out, i)
+    results = []
+    for what, fn in (("HTTP", over_http), ("handle", over_a_handle)):
+        t0 = time.perf_counter()
+        runs = _concurrently(fn, reqs)
+        results.append((what, runs, time.perf_counter() - t0))
+        for i, (r, n) in enumerate(zip(runs, new)):
+            if r is None or r["status"] != 200 or len(r["tokens"]) != n:
+                fail(f"sharded serve (a): {what} request {i} gave "
+                     f"{None if r is None else (r['status'], len(r['tokens']))}"
+                     f", want 200 and {n} tokens")
+    digest = rt.get(replica.handle_request.remote(
+        "last_stream_digest", (), {}), timeout=60)
+    for what, runs, wall in results:
+        rows = [_ttft_tpot(r["times"]) for r in runs]
+        tpot = [t for _, t in rows]
+        print(f"sharded serve (a) over {what}: 6 requests at once, "
+              f"{sum(new)} tokens in {wall:.3f} s; per request (TTFT ms, "
+              f"TPOT ms) {rows}; TPOT median {float(np.median(tpot)):.3f} "
+              f"ms [{card}]", flush=True)
+    me = rt._get_worker().core.worker_id[:8]
+    spans = _decode_spans(rt, me)
+    if not spans:
+        fail("sharded serve: the timeline holds no engine.decode span of "
+             "the replica")
+    med, lo, hi = median_spread(spans)
+    print(f"sharded serve (a): the replica's engine.decode spans: "
+          f"{len(spans)}, median {med:.2f} ms [{lo:.2f}, {hi:.2f}]; its "
+          f"last_stream_digest {digest} [{card}]", flush=True)
+    model = _seeded_model(models, cfg, device)
+    for what, runs, _ in results:
+        check_one_shot(f"sharded serve over {what}", model, models, prompts,
+                       [r["tokens"] for r in runs], device)
+
+    # (c) gRPC: one generate through the proxy's untyped ingress, against
+    # the same generate over a handle, each alone on the replica
+    if use_grpc:
+        req = {"prompt_tokens": reqs[0][0], "max_new_tokens": reqs[0][1]}
+        want = handle.generate.remote(req).result(timeout=600)
+        t0 = time.perf_counter()
+        got = serve.grpc_call(addrs["grpc"], req, application="sharded",
+                              method="generate", timeout=600)
+        grpc_s = time.perf_counter() - t0
+        print(f"sharded serve (c): grpc_call generate via {addrs['grpc']}: "
+              f"{len(got)} tokens in {grpc_s:.3f} s, equal to the handle's "
+              f"generate: {got == want}; equal to (a)'s handle stream of "
+              f"the same request (informational: six requests shared the "
+              f"batch there): {got == results[1][1][0]['tokens']} [{card}]",
+              flush=True)
+        if got != want:
+            fail("sharded serve (c): the gRPC tokens differ from the "
+                 "handle's")
+    (info,) = _probe_all(rt, [replica])
+    _delete_app(rt, serve, "sharded", device)
+    return model, info["launches"]
+
+
+def phase4_schedule(eng, prompts, new, limit=400):
+    """Phase 4's arrivals: all requests but the last at once, the last
+    four steps after the first has its first token. Returns the greedy
+    tokens and the steps taken."""
+    handles = [eng.submit(p, max_new_tokens=n)
+               for p, n in zip(prompts[:-1], new[:-1])]
+    steps = 0
+    while handles[0].first_token_t is None or steps < 4:
+        if handles[0].first_token_t is not None:
+            steps += 1          # the four steps before the last arrives
+        eng.step()
+    handles.append(eng.submit(prompts[-1], max_new_tokens=new[-1]))
+    while not all(h.finish_reason for h in handles):
+        eng.step()
+        steps += 1
+        if steps > limit:
+            fail("engine: requests did not finish")
+    return [h.tokens() for h in handles], eng.steps
+
+
+def mesh_engine(inference, ops, card, model, device, engine, prompts, new):
+    """Phase 18 (b): phase 4's requests through InferenceEngine() and then
+    InferenceEngine(mesh=<one-card mesh>) on the same model (distributed
+    over the mesh in place): the tokens must be equal. Returns the
+    launches in this process during the mesh engine's run."""
+    from ray_tpu_torch.serve.sharded import default_serving_mesh
+    out = {}
+    for what in ("no mesh", "mesh"):
+        mesh = default_serving_mesh(device) if what == "mesh" else None
+        eng = inference.InferenceEngine(
+            model, inference.EngineConfig(**engine), device=device, seed=0,
+            mesh=mesh)
+        zero_counts(ops)                       # main path: the mesh engine
+        t0 = time.perf_counter()
+        toks, steps = phase4_schedule(eng, prompts, new)
+        sync(device)
+        out[what] = (toks, time.perf_counter() - t0, steps)
+        launches = read_counts(ops)
+        del eng
+    same = out["mesh"][0] == out["no mesh"][0]
+    print(f"sharded serve (b): phase 4's requests through "
+          f"InferenceEngine(mesh=<one-card mesh>) "
+          f"{out['mesh'][1]:.2f} s in {out['mesh'][2]} steps "
+          f"({out['mesh'][1] / out['mesh'][2] * 1e3:.2f} ms a step), "
+          f"InferenceEngine() {out['no mesh'][1]:.2f} s in "
+          f"{out['no mesh'][2]} steps "
+          f"({out['no mesh'][1] / out['no mesh'][2] * 1e3:.2f} ms a step); "
+          f"tokens equal: {same}; flash launches in the mesh engine's run "
+          f"{launches} [{card}]", flush=True)
+    if not same:
+        fail("sharded serve (b): the mesh engine's tokens differ from the "
+             "engine's without a mesh")
+    return launches
+
+
+def run_sharded_serve(models, inference, ops, card, device="cuda",
+                      name="tpu-7b", engine=None,
+                      lens=(100, 230, 370, 480, 610, 700),
+                      new=(16, 20, 24, 28, 32, 24)):
+    """Phase 18: sharded serving on the card (a) to (c), on a fresh
+    runtime. Returns the flash launches of its main path: the replica's
+    and this process's during (b)."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    engine = engine or dict(n_slots=8, max_len=1024, prefill_chunk=128,
+                            prefill_budget=256)
+    t_phase = time.perf_counter()
+    version = _grpc_version()
+    print(f"sharded serve: grpcio "
+          f"{version or 'is not installed: (c) is left out'}", flush=True)
+    cfg = models.MODEL_REGISTRY[name]
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens]
+    rt.init(object_store_memory=4 * 2 ** 30)
+    session = rt._context.node.session_name
+    marks = tempfile.mkdtemp(prefix="sharded_smoke_")
+    try:
+        model, replica_launches = sharded_serve(
+            rt, serve, models, card, _sharded_class(),
+            os.path.join(marks, "a"), device, name, engine, prompts, new,
+            use_grpc=version is not None)
+        heartbeat_gap(rt, "sharded serve")
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+            shutil.rmtree(marks, ignore_errors=True)
+    left, shm = session_left(session)
+    if left or shm:
+        fail(f"sharded serve left processes {left} or shared-memory files "
+             f"{shm} behind")
+    launches = mesh_engine(inference, ops, card, model, device, engine,
+                           prompts, new)
+    del model
+    release(device)
+    total = {k: launches[k] + replica_launches.get(k, 0) for k in KERNELS}
+    print(f"sharded serve: flash launches in the replica "
+          f"{replica_launches}, in this process during (b) {launches}; "
+          f"phase 18 {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    if any(total.values()):
+        fail("sharded serve: an engine launched a flash kernel (it attends "
+             "through the cache)")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
@@ -3714,6 +4018,9 @@ def main():
     torch.cuda.empty_cache()
     executor_counts = run_train_executor(models, parallel, train, card,
                                          recipe_steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_counts = run_sharded_serve(models, inference, ops, card)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)
@@ -3727,6 +4034,7 @@ def main():
         records[name]["actor_launches"] = runtime_counts[name]
         records[name]["serve_launches"] = serve_counts[name]
         records[name]["train_worker_launches"] = executor_counts[name]
+        records[name]["sharded_serve_launches"] = sharded_counts[name]
     records["flash_fwd"]["launches"] += (gen_launches + eng_launches
                                          + moe_serve_launches)
     for name in KERNELS:

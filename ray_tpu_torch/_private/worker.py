@@ -70,6 +70,16 @@ def _import_ref(ref: str):
     return target
 
 
+def _chaos_env_changed(keys):
+    """A runtime env set or restored these variables: where one is a
+    fault-injection spec (``RAY_TPU_TORCH_TESTING_*``), the RPC layer,
+    which parses its spec once per process, parses it anew at its next
+    check, so a spec that reaches an actor through its runtime_env arms
+    that actor's process."""
+    if any(k.startswith("RAY_TPU_TORCH_TESTING_") for k in keys):
+        rpc._CHAOS_SPEC = None
+
+
 def _encode_arg(arg, ref_hook, core=None) -> list:
     if isinstance(arg, ObjectRef):
         if ref_hook is not None:
@@ -2756,6 +2766,8 @@ class CoreWorker:
         for k, v in ctx.env_vars.items():
             saved[k] = os.environ.get(k)
             os.environ[k] = v
+        _chaos_env_changed(k for k, v in ctx.env_vars.items()
+                           if saved[k] != v)
         saved_cwd = None
         if ctx.cwd:
             saved_cwd = os.getcwd()
@@ -2777,6 +2789,8 @@ class CoreWorker:
         if token is None:
             return
         saved, saved_cwd, added_paths = token
+        _chaos_env_changed(k for k, v in saved.items()
+                           if os.environ.get(k) != v)
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)

@@ -20,8 +20,11 @@ iterator mid-generation cancels the request in a ``finally`` — the slot
 is reclaimed by the next engine step and the queue metrics decrement
 (see tests/test_serve_streaming.py). Composes with Serve multiplexing
 (the deployment is an ordinary callable; sticky model-id routing works
-unchanged). Sharded replicas (``mesh=``) are not ported yet (ROADMAP.md,
-Queue A item A3g-2).
+unchanged). ``mesh=`` (a ``parallel.mesh.make_mesh`` DeviceMesh) makes
+the engine a sharded one (``inference/engine.py``): the weights are
+loaded whole and distributed over the mesh; a replica spanning several
+processes is ``serve/sharded.py``'s ``ShardedEngineReplica``, which
+steps its engine in lockstep.
 
 The engine runs on ``device`` (default ``"cuda"``: inside a replica the
 first card of the worker's ``CUDA_VISIBLE_DEVICES`` mask, so ask
@@ -83,6 +86,8 @@ class LLMDeployment:
     params_fn: optional zero-arg callable returning the param tree
         (checkpoint restore, sharded init, ...); defaults to random
         init with `seed` — the CI/bench shape.
+    mesh: optional DeviceMesh the engine shards its weights and KV pools
+        over (``InferenceEngine(mesh=)``).
     Engine knobs (n_slots, max_len, prefill_chunk, prefill_budget,
     eos_id, temperature, top_k, top_p) mirror EngineConfig.
 
@@ -115,10 +120,6 @@ class LLMDeployment:
                  weights_key: Optional[str] = "auto",
                  spec_decode=None, kv_quant: str = "none",
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded LLMDeployment (mesh) is not ported yet "
-                "(ROADMAP.md, Queue A item A3g-2)")
         dev = resolve_device(device)
         self.model = _resolve_model(model)
         # coalescing knobs: how many decoded tokens ride one streaming
@@ -160,7 +161,7 @@ class LLMDeployment:
         # is bit-identical to non-speculative serving, only throughput
         # moves. kv_quant="int8" halves+ the prefix-block HBM footprint.
         self.engine = InferenceEngine(self.model, cfg, device=dev,
-                                      seed=seed, spec=spec_decode)
+                                      seed=seed, mesh=mesh, spec=spec_decode)
         self._metrics = _EngineMetrics()
         self.engine.on_step = self._metrics.on_step
         self.engine.start()

@@ -35,20 +35,40 @@ flight recorder gets the engine's spans, as in the JAX engine: an
 under the submitter's trace context), ``engine.prefill`` per chunk,
 ``engine.decode`` per step with its attribution, and the
 ``engine.prefix_hit`` and ``engine.evict`` instants; eager PyTorch
-compiles nothing, so there is no ``engine.compile`` instant. A sharded
-engine (``mesh``) is not ported yet: it waits for Serve's sharded replicas
-(ROADMAP.md, Queue A item A3g-2).
+compiles nothing, so there is no ``engine.compile`` instant.
+
+With a ``mesh`` (a ``DeviceMesh`` from ``parallel.mesh.make_mesh``) the
+engine is one rank of a sharded engine, as the JAX engine over a
+multi-device mesh: the model's parameters are DTensors (whole tensors are
+distributed in place per ``parallel.train_step.state_shardings``), the
+target KV slot pools are laid out ``(None, "batch", None, "kv_heads",
+None)`` under the sharding rules (a dim that does not divide is
+replicated), the draft's pools likewise, pruned against the draft's
+shape, and the prefix blocks, their int8 scale rows and the scratch
+caches are replicated. The host arrays (lengths, last tokens,
+temperatures) go in as plain tensors, which the mesh takes as replicated.
+The cache writes and decode attention run on each rank's own shards
+(``models/transformer.py``), logits are gathered whole before a token is
+picked, and the sampling generator is seeded alike on every rank, so
+every rank picks the same tokens. The ranks must run the same sequence
+of collectives, so a sharded engine is driven in lockstep: its
+background thread (``start``) is not started, and the caller steps it
+(``step``) on every rank with the same requests
+(``serve/sharded.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch._private import events
 from ray_tpu_torch.device import resolve_device
@@ -59,8 +79,39 @@ from ray_tpu_torch.inference.scheduler import (FINISH_LENGTH, PrefillChunk,
                                                Request, RequestHandle,
                                                Scheduler)
 from ray_tpu_torch.models.sampling import sample_logits_dynamic
+from ray_tpu_torch.parallel import sharding as sharding_lib
+from ray_tpu_torch.parallel.train_step import (logical_pspec_to_mesh,
+                                               state_shardings)
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, Queue A item {})"
+
+def _local(t):
+    """(the part of ``t`` this rank holds, its offset in the whole
+    tensor): a DTensor's local shard, or a plain tensor itself. Writes
+    into the part land in ``t``."""
+    if not isinstance(t, DTensor):
+        return t, (0,) * t.dim()
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    _, off = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return t.to_local(), tuple(off)
+
+
+def _on_device(fn):
+    """Run an engine method under the engine lock and its device context
+    (``InferenceEngine._device_ctx``), entered once per thread however
+    deep the calls nest."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        if getattr(self._tls, "on_device", False):
+            return fn(self, *args, **kwargs)
+        with self._lock, self._device_ctx():
+            self._tls.on_device = True
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                self._tls.on_device = False
+    return run
 
 
 def _numpy_bfloat16():
@@ -117,20 +168,17 @@ class EngineConfig:
 
 class InferenceEngine:
     """Continuous-batching engine over one model (its weights already
-    loaded) on one device."""
+    loaded) on one device, or one rank of a sharded engine over a
+    ``mesh`` (module docstring)."""
 
     def __init__(self, model, config: Optional[EngineConfig] = None,
-                 device="cuda", seed: int = 0, mesh=None, spec=None):
-        if mesh is not None:
-            # under PyTorch each card has its own process, so a sharded
-            # engine is a gang of ranks that admit the same requests and
-            # sample the same tokens in lockstep (the JAX package's
-            # serve/sharded.py), which sits on the runtime core
-            raise NotImplementedError(
-                "a sharded engine (mesh) " + _NOT_PORTED.format("A3g-2"))
+                 device="cuda", seed: int = 0, mesh=None, spec=None,
+                 rules=None):
         cfg = self.config = config or EngineConfig()
         self.device = resolve_device(device)
         self.model = model
+        self.mesh = mesh
+        self._rules = rules
         mcfg = model.cfg
         self._kv_quant = kvq.check_mode(cfg.kv_quant) == "int8"
         # speculative decoding: both slot pools grow by k positions so the
@@ -143,10 +191,17 @@ class InferenceEngine:
             raise ValueError(
                 f"max_len={cfg.max_len} (+ spec k={self._spec_k}) exceeds "
                 f"the model's max_seq_len={mcfg.max_seq_len}")
+        dtype = self._cache_dtype = cfg.cache_dtype or mcfg.dtype
+        pool_shape = (mcfg.n_layers, cfg.n_slots, self._pool_len,
+                      mcfg.n_kv_heads, mcfg.head_dim)
+        # the target pools' mesh spec, decided first: a mesh that is not
+        # one fails here as the JAX engine's does (AttributeError)
+        self._pool_spec = self._kv_spec(pool_shape)
         param = next(model.parameters())
         if param.device.type != self.device.type:
             raise ValueError(f"model weights are on {param.device}, the "
                              f"engine on {self.device}")
+        self._shard_weights(model)
         self._draft_model = None
         if self._spec is not None:
             self._draft_model = spec_lib.resolve_draft(self._spec, mcfg,
@@ -155,6 +210,7 @@ class InferenceEngine:
                 raise ValueError(
                     f"draft max_seq_len={self._draft_model.cfg.max_seq_len}"
                     f" < max_len + k = {self._pool_len}")
+            self._shard_weights(self._draft_model)
         self.prefix_cache = None
         if cfg.prefix_cache_slots > 0:
             self._blocks_per_slot = cfg.max_len // cfg.prefill_chunk
@@ -167,29 +223,32 @@ class InferenceEngine:
                                chunk_size=cfg.prefill_chunk,
                                prefix_cache=self.prefix_cache)
         self._lock = threading.RLock()
+        self._tls = threading.local()
         self._work = threading.Condition(self._lock)
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
-        dtype = self._cache_dtype = cfg.cache_dtype or mcfg.dtype
         # the pools are allocated once and written in place by every step
-        self._pool_k = self._zeros((mcfg.n_layers, cfg.n_slots,
-                                    self._pool_len, mcfg.n_kv_heads,
-                                    mcfg.head_dim), dtype)
-        self._pool_v = torch.zeros_like(self._pool_k)
+        self._pool_k = self._zeros(pool_shape, dtype, self._pool_spec)
+        self._pool_v = self._zeros(pool_shape, dtype, self._pool_spec)
         # scratch is prefill_chunk longer than a slot so a padded final
         # chunk never clamps its write window back onto real entries
         self._scratch_len = cfg.max_len + cfg.prefill_chunk
         self._scratch_shape = (mcfg.n_layers, 1, self._scratch_len,
                                mcfg.n_kv_heads, mcfg.head_dim)
         self._dpool_k = self._dpool_v = None
+        self._draft_pool_spec = None
         if self._spec is not None:
+            # the draft's pools: the target pools' layout, pruned against
+            # the draft's shape (its KV heads may not divide the tensor
+            # axis)
             dcfg = self._draft_model.cfg
-            self._dpool_k = self._zeros((dcfg.n_layers, cfg.n_slots,
-                                         self._pool_len, dcfg.n_kv_heads,
-                                         dcfg.head_dim), dtype)
-            self._dpool_v = torch.zeros_like(self._dpool_k)
+            dshape = (dcfg.n_layers, cfg.n_slots, self._pool_len,
+                      dcfg.n_kv_heads, dcfg.head_dim)
+            self._draft_pool_spec = self._kv_spec(dshape)
+            self._dpool_k = self._zeros(dshape, dtype, self._draft_pool_spec)
+            self._dpool_v = self._zeros(dshape, dtype, self._draft_pool_spec)
             self._draft_scratch_shape = (dcfg.n_layers, 1, self._scratch_len,
                                          dcfg.n_kv_heads, dcfg.head_dim)
             self._spec_step = spec_lib.build_spec_step(
@@ -246,11 +305,60 @@ class InferenceEngine:
             self.profiler = profiling.StepProfiler(
                 "decode_step", emit_span=False)
 
-    def _zeros(self, shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=self.device)
+    def _kv_spec(self, shape):
+        """The mesh spec of a KV pool of ``shape``: slots over the batch
+        axes, KV heads over ``tensor``, each pruned where it does not
+        divide (the JAX engine's pool sharding); None without a mesh."""
+        if self.mesh is None:
+            return None
+        rules = self._rules or sharding_lib.DEFAULT_RULES
+        return sharding_lib._prune_indivisible(
+            logical_pspec_to_mesh((None, "batch", None, "kv_heads", None),
+                                  rules), shape, self.mesh)
+
+    def _shard_weights(self, model):
+        """Under a mesh, distribute a model whose weights are whole
+        tensors, the same on every rank, in place per ``state_shardings``
+        (each rank keeps its shards, no communication). Weights that are
+        DTensors already stay as the caller placed them."""
+        if self.mesh is None or isinstance(next(model.parameters()),
+                                           DTensor):
+            return
+        sharding_lib.load_whole(
+            model, {n: p.detach() for n, p in model.named_parameters()},
+            self.mesh, state_shardings(model, self.mesh, self._rules))
+
+    def _zeros(self, shape, dtype, spec=None):
+        """A zero tensor; under a mesh a DTensor laid out as ``spec`` says
+        (replicated when None), each rank allocating only its shard."""
+        if self.mesh is None:
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        from torch.distributed.tensor._utils import \
+            compute_local_shape_and_global_offset
+
+        place = sharding_lib.spec_to_placements(spec or (), self.mesh)
+        local_shape, _ = compute_local_shape_and_global_offset(
+            shape, self.mesh, place)
+        local = torch.zeros(local_shape, dtype=dtype, device=self.device)
+        return DTensor.from_local(local, self.mesh, place, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=torch.empty(shape,
+                                                     device="meta").stride())
+
+    def _device_ctx(self):
+        """Inference mode on one device. Under a mesh no_grad instead (an
+        inference-mode detach of a DTensor parameter fails: see
+        ``parallel.sharding.constrain``), with the mesh current and plain
+        tensors taken as replicated where they meet a DTensor."""
+        if self.mesh is None:
+            return torch.inference_mode()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(sharding_lib.on_mesh(self.mesh))
+        return stack
 
     # ------------------------------------------------------------ device fns
-    @torch.inference_mode()
+    @_on_device
     def _prefill(self, model, sk, sv, tokens, pos0: int):
         """One budgeted chunk of prompt through the cached path (writes sk,
         sv in place). Returns the chunk's logits."""
@@ -258,26 +366,32 @@ class InferenceEngine:
         logits, _ = model(tokens, cache=cache, chunked_prefill=True)
         return logits
 
-    @torch.inference_mode()
+    @_on_device
     def _sample_first(self, logits, n_real: int, temp: float) -> int:
         """The would-be next token after a chunk; used only after the last
         chunk, where it is the first generated token."""
         cfg = self.config
-        tok = sample_logits_dynamic(logits[:, n_real - 1], self._gen,
-                                    torch.tensor([temp]), cfg.top_k,
-                                    cfg.top_p)
+        tok = sample_logits_dynamic(
+            sharding_lib.gather_whole(logits[:, n_real - 1]), self._gen,
+            torch.tensor([temp]), cfg.top_k, cfg.top_p)
         return int(tok[0])
 
-    @torch.inference_mode()
+    @_on_device
     def _insert(self, pool_k, pool_v, sk, sv, slot: int):
         # scratch carries prefill_chunk of padding tail; the slot takes the
         # first max_len entries (a spec pool's k extra positions are
-        # written by the verify window before they are read)
+        # written by the verify window before they are read). Under a mesh
+        # each rank writes its own shard of the pool (if it holds the
+        # slot) from the replicated scratch.
         n = self.config.max_len
-        pool_k[:, slot, :n] = sk[:, 0, :n]
-        pool_v[:, slot, :n] = sv[:, 0, :n]
+        for pool, scratch in ((pool_k, sk), (pool_v, sv)):
+            local, (_, s0, _, h0, _) = _local(pool)
+            row = slot - s0
+            if 0 <= row < local.shape[1]:
+                src = _local(scratch)[0]
+                local[:, row, :n] = src[:, 0, :n, h0:h0 + local.shape[3]]
 
-    @torch.inference_mode()
+    @_on_device
     def _decode(self) -> np.ndarray:
         """One token for every slot (free slots too: their writes land at
         their clamped length and are never read). Writes the pool in
@@ -288,11 +402,12 @@ class InferenceEngine:
                  "idx": torch.from_numpy(self._lengths).to(dev)}
         toks = torch.from_numpy(self._last_tok).to(dev)
         logits, _ = self.model(toks[:, None], cache=cache)
-        tok = sample_logits_dynamic(logits[:, -1], self._gen,
-                                    torch.from_numpy(self._temps),
-                                    cfg.top_k, cfg.top_p)
+        tok = sample_logits_dynamic(
+            sharding_lib.gather_whole(logits[:, -1]), self._gen,
+            torch.from_numpy(self._temps), cfg.top_k, cfg.top_p)
         return tok.cpu().numpy()
 
+    @_on_device
     def _spec_decode(self):
         """The fused draft+verify step; (out [S, k+1], accept [S]) brought
         to the host before anything branches on them."""
@@ -389,6 +504,7 @@ class InferenceEngine:
                     self.sched.fail_all(e)
 
     # --------------------------------------------------------------- step
+    @_on_device
     def step(self) -> bool:
         """One engine iteration: reap cancels/deadlines, run budgeted
         prefill chunks (admission), advance every occupied slot. Returns
@@ -586,27 +702,33 @@ class InferenceEngine:
         bslot, boff = divmod(block, self._blocks_per_slot)
         return bslot, boff * self.config.prefill_chunk
 
-    @torch.inference_mode()
+    @_on_device
     def _load_span(self, sk, sv, bslot: int, src: int, dst: int):
         """Cached block -> scratch[dst:dst+C] (dequantized under int8): the
         suffix prefill then attends over it as if the chunk had just been
-        computed."""
+        computed. Blocks, scales and scratch are replicated under a mesh,
+        so each rank copies its own whole copy."""
         C = self.config.prefill_chunk
         for scratch, blocks, scales in ((sk, self._blocks_k, self._blocks_ks),
                                         (sv, self._blocks_v, self._blocks_vs)):
+            scratch, blocks = _local(scratch)[0], _local(blocks)[0]
+            scales = None if scales is None else _local(scales)[0]
             span = blocks[:, bslot, src:src + C]
             if scales is not None:
                 span = kvq.dequantize_kv(span, scales[:, bslot, src:src + C],
                                          self._cache_dtype)
             scratch[:, 0, dst:dst + C] = span
 
-    @torch.inference_mode()
+    @_on_device
     def _save_block(self, sk, sv, bslot: int, dst: int, src: int):
         """One chunk scratch[src:src+C] -> block pool (row bslot, offset
-        dst), quantizing when int8 is on."""
+        dst), quantizing when int8 is on (replicated under a mesh, as in
+        ``_load_span``)."""
         C = self.config.prefill_chunk
         for scratch, blocks, scales in ((sk, self._blocks_k, self._blocks_ks),
                                         (sv, self._blocks_v, self._blocks_vs)):
+            scratch, blocks = _local(scratch)[0], _local(blocks)[0]
+            scales = None if scales is None else _local(scales)[0]
             span = scratch[:, 0, src:src + C]
             if scales is not None:
                 span, scale = kvq.quantize_kv(span)
@@ -665,6 +787,7 @@ class InferenceEngine:
             self._prefill(self._draft_model, dk, dv, chunk, off)
 
     # ------------------------------------------------------ KV hand-off
+    @_on_device
     def export_kv_blocks(self, tokens, max_chunks: Optional[int] = None):
         """Sender half of the prefill/decode hand-off: copy the cached KV
         blocks covering ``tokens``' chunk-aligned prefix out of the block
@@ -702,6 +825,7 @@ class InferenceEngine:
                     arrays = (self._blocks_k, self._blocks_v)
                     if self._kv_quant:
                         arrays += (self._blocks_ks, self._blocks_vs)
+                    arrays = [_local(a)[0] for a in arrays]
                     spans.append(tuple(host(a[:, bslot, boff:boff + C])
                                        for a in arrays))
             finally:
@@ -710,7 +834,7 @@ class InferenceEngine:
                 self.kv_exports += 1
         return len(spans) * C, spans
 
-    @torch.inference_mode()
+    @_on_device
     def import_kv_blocks(self, tokens, spans) -> int:
         """Receiver half: land remotely prefilled spans in this engine's
         block pool and extend the trie over them, so the NEXT admission of
@@ -763,7 +887,7 @@ class InferenceEngine:
                     pairs = ((self._blocks_k, ck, self._cache_dtype),
                              (self._blocks_v, cv, self._cache_dtype))
                 for blocks, x, dtype in pairs:
-                    blocks[:, bslot, boff:boff + C] = dev(x, dtype)
+                    _local(blocks)[0][:, bslot, boff:boff + C] = dev(x, dtype)
             imported = len(created) * C
             if imported:
                 self.kv_imports += 1

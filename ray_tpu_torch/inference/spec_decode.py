@@ -40,6 +40,7 @@ import torch
 
 from ray_tpu_torch.models.convert import init_params
 from ray_tpu_torch.models.sampling import sample_logits_dynamic
+from ray_tpu_torch.parallel import sharding as sharding_lib
 
 
 @dataclasses.dataclass
@@ -127,9 +128,12 @@ def build_spec_step(model, draft_model, k: int, top_k: int, top_p: float):
     [S, K+1], accept [S])`` writes the target slot pools (pk, pv) and the
     draft slot pools (dk, dv), all ``max_len + K`` positions long, in
     place; lengths/toks/temps are the engine's per-slot vectors.
-    ``out[s, :accept[s]+1]`` are the tokens slot ``s`` emits this step."""
+    ``out[s, :accept[s]+1]`` are the tokens slot ``s`` emits this step.
+    The caller runs it under its device context (the engine's: inference
+    mode, or no_grad with the mesh current); over a mesh the pools are
+    DTensors and the logits are gathered whole before a token is picked,
+    on every rank alike."""
 
-    @torch.inference_mode()
     def spec_step(pk, pv, dk, dv, lengths, toks, generator, temps):
         # draft: K+1 greedy single-token steps; step j consumes cur_j
         # (cur_0 = the last emitted token), writes its KV at len+j and
@@ -138,7 +142,8 @@ def build_spec_step(model, draft_model, k: int, top_k: int, top_p: float):
         for j in range(k + 1):
             logits, _ = draft_model(cur[:, None], cache={
                 "k": dk, "v": dv, "idx": lengths + j})
-            cur = torch.argmax(logits[:, -1], dim=-1)
+            cur = torch.argmax(sharding_lib.gather_whole(logits[:, -1]),
+                               dim=-1)
             ys.append(cur)
         drafts = torch.stack(ys[:k], dim=1)                  # [S, K]
 
@@ -147,6 +152,7 @@ def build_spec_step(model, draft_model, k: int, top_k: int, top_p: float):
         seq = torch.cat([toks[:, None], drafts], dim=1)
         logits, _ = model(seq, cache={"k": pk, "v": pv, "idx": lengths},
                           chunked_prefill=True)
+        logits = sharding_lib.gather_whole(logits)
         # position 0 samples exactly like the non-spec decode step
         out0 = sample_logits_dynamic(logits[:, 0], generator, temps, top_k,
                                      top_p)

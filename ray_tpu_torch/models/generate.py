@@ -42,16 +42,18 @@ def make_generate_fn(model: TransformerLM, mesh=None, rules=None,
     temperature 0.0 is greedy; > 0 samples. max_len = prompt_len +
     max_new_tokens bounds the KV cache."""
     # imported here: the parallel package imports this module's package
+    from ray_tpu_torch.parallel import sharding
     from ray_tpu_torch.parallel import train_step as ts
     dev = resolve_device(device)
     cfg = model.cfg
     max_len = prompt_len + max_new_tokens
     shardings = (ts.state_shardings(model, mesh, rules) if mesh is not None
                  else None)
-    rules = rules or ts.sharding_lib.DEFAULT_RULES
+    rules = rules or sharding.DEFAULT_RULES
 
     def init_fn(generator: torch.Generator) -> TransformerLM:
-        ts._load(model, init_params(cfg, generator, dev), mesh, shardings)
+        sharding.load_whole(model, init_params(cfg, generator, dev), mesh,
+                            shardings)
         return model
 
     def new_cache():
@@ -61,8 +63,8 @@ def make_generate_fn(model: TransformerLM, mesh=None, rules=None,
         place = ts._batch_placements(
             mesh, rules, tuple(cache["k"].shape),
             (None, "batch", None, "kv_heads", None))
-        return {"k": ts._distribute(cache["k"], mesh, place),
-                "v": ts._distribute(cache["v"], mesh, place),
+        return {"k": sharding.distribute_whole(cache["k"], mesh, place),
+                "v": sharding.distribute_whole(cache["v"], mesh, place),
                 "idx": cache["idx"]}
 
     def generate_fn(tokens, generator: Optional[torch.Generator] = None):
@@ -72,20 +74,21 @@ def make_generate_fn(model: TransformerLM, mesh=None, rules=None,
                              f"takes ({batch}, {prompt_len})")
         # under a mesh no_grad, not inference_mode: see sharding.constrain
         no_grad = torch.inference_mode if mesh is None else torch.no_grad
-        with no_grad(), ts._on_mesh(mesh):
+        with no_grad(), sharding.on_mesh(mesh):
             if mesh is not None:
-                tokens = ts._distribute(tokens, mesh, ts._batch_placements(
-                    mesh, rules, (batch, prompt_len), ("batch", None)))
+                tokens = sharding.distribute_whole(
+                    tokens, mesh, ts._batch_placements(
+                        mesh, rules, (batch, prompt_len), ("batch", None)))
             cache = new_cache()
             # prefill: one full-prompt forward seeds every layer's cache
             logits, cache = model(tokens, cache=cache)
-            tok = sample_logits(ts._whole(logits[:, -1, :]), generator,
-                                temperature)
+            tok = sample_logits(sharding.gather_whole(logits[:, -1, :]),
+                                generator, temperature)
             out = [tok]
             for _ in range(max_new_tokens - 1):
                 logits, cache = model(tok[:, None], cache=cache)
-                tok = sample_logits(ts._whole(logits[:, -1, :]), generator,
-                                    temperature)
+                tok = sample_logits(sharding.gather_whole(logits[:, -1, :]),
+                                    generator, temperature)
                 out.append(tok)
         return torch.stack(out, dim=1)
 

@@ -187,7 +187,21 @@ def _cached_attention_sharded(q, k_cache, v_cache, q_pos0):
     fn = local_map(_cached_attention, out_placements=place,
                    in_placements=(place, place, place, None),
                    device_mesh=k_cache.device_mesh, redistribute_inputs=True)
-    return fn(q, k_cache, v_cache, q_pos0)
+    return fn(q, k_cache, v_cache, _local_rows(q_pos0, k_cache))
+
+
+def _local_rows(idx, like):
+    """A per-row [B] offset tensor cut to the rows this rank's shard of
+    ``like`` (a DTensor whose dim 0 is the batch) holds; a scalar offset
+    as it is. The engine's slot pool decodes every row at its own
+    length, with the slots sharded over the batch axes."""
+    if not (isinstance(idx, torch.Tensor) and idx.dim() > 0):
+        return idx
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        like.shape, like.device_mesh, like.placements)
+    return idx[off[0]:off[0] + shape[0]]
 
 
 def _positions(start, L: int, device):
@@ -208,12 +222,11 @@ def _cache_write(cache, new, idx):
     at M-L harmlessly. Returns cache."""
     if isinstance(cache, DTensor):
         # write into the local shards: the slice moves every step, and
-        # DTensor would propagate each new slice's sharding anew
-        if isinstance(idx, torch.Tensor) and idx.dim() > 0:
-            raise ValueError("a sharded cache takes one write offset for "
-                             "every row")
+        # DTensor would propagate each new slice's sharding anew. Per-row
+        # offsets are cut to the rows of this rank's shard.
         new = new.redistribute(cache.device_mesh, cache.placements)
-        _cache_write(cache.to_local(), new.to_local(), idx)
+        _cache_write(cache.to_local(), new.to_local(),
+                     _local_rows(idx, cache))
         return cache
     L, M = new.shape[1], cache.shape[1]
     new = new.to(cache.dtype)

@@ -81,13 +81,15 @@ class MeshConfig:
 
 
 def init_world(backend: Optional[str] = None, store=None, rank: int = 0,
-               world_size: int = 1, device="cuda") -> None:
+               world_size: int = 1, device="cuda",
+               timeout_s: Optional[float] = None) -> None:
     """Start the default process group from an explicit store, unless one
     is running. ``store`` defaults to a ``HashStore``, which serves a world
     of one; a world of several processes passes a ``FileStore`` (or a
     ``TCPStore``) shared by its ranks. The backend defaults to NCCL for
     ``device="cuda"`` (whose rank's card becomes the current device) and
-    gloo for the CPU."""
+    gloo for the CPU. ``timeout_s`` bounds each collective (torch's
+    default otherwise)."""
     if dist.is_initialized():
         return
     dev = torch.device(device)
@@ -99,8 +101,12 @@ def init_world(backend: Optional[str] = None, store=None, rank: int = 0,
         store = dist.HashStore()
     if dev.type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
+    kw = {}
+    if timeout_s is not None:
+        import datetime
+        kw["timeout"] = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(backend, store=store, rank=rank,
-                            world_size=world_size)
+                            world_size=world_size, **kw)
 
 
 def mesh_ranks(config: MeshConfig, world_size: int) -> np.ndarray:

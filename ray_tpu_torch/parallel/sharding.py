@@ -18,16 +18,19 @@ only which rank holds which shard differs.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ray_tpu_torch.parallel.mesh import (AXIS_DATA, AXIS_EXPERT, AXIS_FSDP,
                                          AXIS_SEQ, AXIS_TENSOR, MESH_AXES,
                                          axis_size, current_mesh,
-                                         mesh_axis_names)
+                                         mesh_axis_names, use_mesh)
 
 # Default rule table: logical axis -> mesh axis (or None = replicated), the
 # JAX package's. Embeddings/MLP widths shard over tensor; the long "model
@@ -142,6 +145,11 @@ def constrain(x, logical: Sequence[Optional[str]],
     mesh = x.device_mesh
     spec = _prune_indivisible(logical_to_mesh_axes(logical, rules),
                               tuple(x.shape), mesh)
+    # a dim of size 1 stays replicated: only an axis of size 1 divides
+    # it, which shards nothing, and DTensor cannot view away a sharded
+    # singleton dim (a batch of one on a one-rank mesh)
+    spec = tuple(None if i < x.dim() and x.shape[i] == 1 else e
+                 for i, e in enumerate(spec))
     placements = spec_to_placements(spec, mesh)
     if tuple(x.placements) == placements:
         return x
@@ -156,7 +164,40 @@ def constrain(x, logical: Sequence[Optional[str]],
     return x.redistribute(mesh, placements)
 
 
+def distribute_whole(t, mesh, placements):
+    """A whole tensor that every rank holds alike -> its DTensor (each rank
+    keeps its own shard; no communication)."""
+    return distribute_tensor(t, mesh, placements, src_data_rank=None)
+
+
+def load_whole(model, sd, mesh, shardings):
+    """Load a state_dict of whole tensors into ``model`` (assigned),
+    distributed as ``shardings`` says when there is a mesh."""
+    if mesh is not None:
+        sd = {n: distribute_whole(t, mesh, shardings[n][0])
+              for n, t in sd.items()}
+    model.load_state_dict(sd, assign=True)
+
+
+@contextlib.contextmanager
+def on_mesh(mesh):
+    """The context a mesh step runs in: the mesh current, and plain
+    tensors (positions, masks, constants) taken as replicated where they
+    meet a DTensor. Nothing without a mesh."""
+    if mesh is None:
+        yield
+        return
+    with use_mesh(mesh), implicit_replication():
+        yield
+
+
+def gather_whole(x):
+    """A DTensor's full value on every rank; anything else as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 __all__ = ["AXIS_DATA", "AXIS_EXPERT", "AXIS_FSDP", "AXIS_SEQ",
            "AXIS_TENSOR", "DEFAULT_RULES", "batch_sharding", "constrain",
-           "logical_to_mesh_axes", "make_sharding_rules", "param_shardings",
-           "spec_to_placements"]
+           "distribute_whole", "gather_whole", "load_whole",
+           "logical_to_mesh_axes", "make_sharding_rules", "on_mesh",
+           "param_shardings", "spec_to_placements"]

@@ -32,15 +32,13 @@ counted once per input shape (``StepProfiler.wrap_step``).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
-from torch.distributed.tensor.experimental import implicit_replication
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch.device import resolve_device
@@ -48,8 +46,9 @@ from ray_tpu_torch.models.axes import param_axes
 from ray_tpu_torch.models.convert import init_params, jax_leaf_groups
 from ray_tpu_torch.models.transformer import TransformerLM
 from ray_tpu_torch.parallel import sharding as sharding_lib
-from ray_tpu_torch.parallel.mesh import use_mesh
 from ray_tpu_torch.parallel.sharding import (_prune_indivisible,
+                                             distribute_whole, gather_whole,
+                                             load_whole, on_mesh,
                                              spec_to_placements)
 
 
@@ -208,21 +207,6 @@ def _batch_placements(mesh, rules, shape, logical=("batch", "seq")):
     return spec_to_placements(spec, mesh)
 
 
-def _distribute(t, mesh, placements):
-    """A whole tensor that every rank holds alike -> its DTensor (each rank
-    keeps its own shard; no communication)."""
-    return distribute_tensor(t, mesh, placements, src_data_rank=None)
-
-
-def _load(model, sd, mesh, shardings):
-    """Load a state_dict of whole tensors, distributed when there is a
-    mesh."""
-    if mesh is not None:
-        sd = {n: _distribute(t, mesh, shardings[n][0])
-              for n, t in sd.items()}
-    model.load_state_dict(sd, assign=True)
-
-
 @torch.no_grad()
 def load_params(model: TransformerLM, state_dict) -> None:
     """Copy whole tensors (the same on every rank, e.g. from
@@ -232,25 +216,8 @@ def load_params(model: TransformerLM, state_dict) -> None:
     for name, p in model.named_parameters():
         full = torch.as_tensor(state_dict[name]).to(p.device, p.dtype)
         if isinstance(p, DTensor):
-            full = _distribute(full, p.device_mesh, p.placements)
+            full = distribute_whole(full, p.device_mesh, p.placements)
         p.copy_(full)
-
-
-@contextlib.contextmanager
-def _on_mesh(mesh):
-    """The context a mesh step runs in: the mesh current, and plain
-    tensors (positions, masks, constants) taken as replicated where they
-    meet a DTensor."""
-    if mesh is None:
-        yield
-        return
-    with use_mesh(mesh), implicit_replication():
-        yield
-
-
-def _whole(x):
-    """A DTensor's full value on every rank; anything else as it is."""
-    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def make_train_fns(model: TransformerLM,
@@ -297,8 +264,9 @@ def make_train_fns(model: TransformerLM,
     rules = rules or sharding_lib.DEFAULT_RULES
 
     def init_fn(generator: torch.Generator) -> TrainState:
-        _load(model, init_params(cfg, generator, dev, dtype=cfg.param_dtype),
-              mesh, shardings)
+        load_whole(model,
+                   init_params(cfg, generator, dev, dtype=cfg.param_dtype),
+                   mesh, shardings)
         return TrainState(step=0, model=model,
                           optimizer=optimizer(jax_leaf_groups(model)))
 
@@ -324,18 +292,18 @@ def make_train_fns(model: TransformerLM,
         if mask is not None:
             mask = torch.as_tensor(mask, device=dev)
         state.optimizer.zero_grad(set_to_none=True)
-        with _on_mesh(mesh):
+        with on_mesh(mesh):
             if mesh is not None:
                 place = _batch_placements(mesh, rules, tuple(batch_shape))
-                tokens = _distribute(tokens, mesh, place)
+                tokens = distribute_whole(tokens, mesh, place)
                 if mask is not None:
-                    mask = _distribute(mask, mesh, place)
+                    mask = distribute_whole(mask, mesh, place)
             ce, denom, aux = loss_fn(tokens, mask)
             loss = (ce + cfg.router_aux_coef * aux if cfg.n_experts > 0
                     else ce)
             # a loss left partial over the batch's ranks is reduced before
             # the backward seeds it
-            _whole(loss).backward()
+            gather_whole(loss).backward()
             grads = []
             for p in state.model.parameters():
                 if p.grad is None:
@@ -347,13 +315,14 @@ def make_train_fns(model: TransformerLM,
                     p.grad = p.grad.redistribute(p.device_mesh,
                                                  p.placements)
                 grads.append(p.grad)
-            gnorm = _whole(torch.nn.utils.get_total_norm(grads))
+            gnorm = gather_whole(torch.nn.utils.get_total_norm(grads))
             state.optimizer.step()
         state.step += 1
-        return state, {"loss": _whole(ce).detach(),
-                       "total_loss": _whole(loss).detach(),
-                       "moe_aux": _whole(aux).detach(), "grad_norm": gnorm,
-                       "tokens": _whole(denom)}
+        return state, {"loss": gather_whole(ce).detach(),
+                       "total_loss": gather_whole(loss).detach(),
+                       "moe_aux": gather_whole(aux).detach(),
+                       "grad_norm": gnorm,
+                       "tokens": gather_whole(denom)}
 
     if profiler is None:
         return init_fn, step_fn, shardings
@@ -385,7 +354,7 @@ def make_infer_fns(model: TransformerLM, mesh: DeviceMesh, rules=None,
     rules = rules or sharding_lib.DEFAULT_RULES
 
     def init_fn(generator: torch.Generator) -> TransformerLM:
-        _load(model, init_params(cfg, generator, dev), mesh, shardings)
+        load_whole(model, init_params(cfg, generator, dev), mesh, shardings)
         return model
 
     @torch.no_grad()   # not inference_mode: see sharding.constrain
@@ -394,11 +363,11 @@ def make_infer_fns(model: TransformerLM, mesh: DeviceMesh, rules=None,
         if tuple(tokens.shape) != tuple(batch_shape):
             raise ValueError(f"tokens {tuple(tokens.shape)}; this function "
                              f"takes {tuple(batch_shape)}")
-        with _on_mesh(mesh):
-            tokens = _distribute(tokens, mesh, _batch_placements(
+        with on_mesh(mesh):
+            tokens = distribute_whole(tokens, mesh, _batch_placements(
                 mesh, rules, tuple(batch_shape)))
             h = model(tokens, return_hidden=True)
             logits = h[:, -1, :] @ model.unembed_weight()
-            return _whole(logits)
+            return gather_whole(logits)
 
     return init_fn, infer_fn, shardings

@@ -1,21 +1,23 @@
 """Serve on the port's runtime: deployments, the controller, handles and
-the router, replicas, the HTTP proxy, fleet admission, SLOs, the weight
-plane and disaggregated prefill/decode. Importing it imports no torch:
-only ``inference.LLMDeployment`` and the disaggregated tiers bring it in,
-in the replica that builds them."""
+the router, replicas, the HTTP and gRPC proxies, fleet admission, SLOs,
+the weight plane, disaggregated prefill/decode and sharded replicas (a
+gang of ranks in lockstep). Importing it imports no torch: only
+``inference.LLMDeployment``, the disaggregated tiers and
+``ShardedEngineReplica`` bring it in, in the replica that builds them."""
 
-from ray_tpu_torch.serve.api import (DEFAULT_HTTP_PORT,
-                                     ShardedEngineReplica, batch,
-                                     build_sharded_app, delete, deployment,
-                                     fleet_status, get_app_handle,
-                                     get_tenant_quotas, grpc_call, proxies,
-                                     run, set_tenant_quota, shutdown,
-                                     slo_status, start, status)
+from ray_tpu_torch.serve.api import (DEFAULT_HTTP_PORT, batch, delete,
+                                     deployment, fleet_status,
+                                     get_app_handle, get_tenant_quotas,
+                                     proxies, run, set_tenant_quota,
+                                     shutdown, slo_status, start, status)
+from ray_tpu_torch.serve.grpc_proxy import grpc_call
 from ray_tpu_torch.serve.schema import deploy_from_config
 from ray_tpu_torch.serve.deployment import Application, Deployment
 from ray_tpu_torch.serve.handle import DeploymentHandle, DeploymentResponse
 from ray_tpu_torch.serve.multiplex import (get_multiplexed_model_id,
                                            multiplexed)
+from ray_tpu_torch.serve.sharded import (ShardedEngineReplica,
+                                         build_sharded_app)
 
 __all__ = ["deployment", "run", "shutdown", "status", "batch", "delete",
            "get_app_handle", "Deployment", "Application",

@@ -97,12 +97,12 @@ def _app_to_specs(app: Application, app_name: str) -> List[Dict]:
     import cloudpickle
     import dataclasses
 
-    from ray_tpu_torch.serve.controller import check_ported
+    from ray_tpu_torch.serve.sharded_replica import refuse_topology
     specs = []
     for node in app.flatten():
         dep = node.deployment
         cfg = dataclasses.asdict(dep.config)
-        check_ported(cfg)
+        refuse_topology(cfg)
 
         def materialize(v):
             if isinstance(v, Application):
@@ -162,11 +162,7 @@ def start(http_port: Optional[int] = None, grpc_port: Optional[int] = None,
     grpc_servicer_functions: import paths of protoc-generated
     add_X_to_server functions — registers the typed protobuf services on
     every gRPC proxy (reference: gRPCOptions.grpc_servicer_functions)."""
-    if grpc_port is not None or grpc_servicer_functions:
-        raise NotImplementedError(
-            "the gRPC proxy is not ported yet (ROADMAP.md, Queue A item "
-            "A3g-2)")
-    if http_port is None:
+    if http_port is None and grpc_port is None:
         http_port = DEFAULT_HTTP_PORT   # serve.start() serves HTTP
     ctrl = _get_controller()
     ray_tpu_torch.get(ctrl.set_http.remote(http_port, grpc_port,
@@ -339,24 +335,3 @@ async def _flusher(self_arg, fn, state, max_batch_size, wait_s):
                 if not f.done():
                     f.set_exception(e)
 
-
-# ------------------------------------------------- left for a later slice
-def _later(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue A item A3g-2)")
-
-
-class ShardedEngineReplica:
-    """A replica over several processes in lockstep (the JAX package's
-    serve/sharded.py): not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        _later("ShardedEngineReplica")
-
-
-def build_sharded_app(*args, **kwargs):
-    _later("build_sharded_app")
-
-
-def grpc_call(*args, **kwargs):
-    _later("the gRPC proxy (grpc_call)")

@@ -19,25 +19,6 @@ from typing import Any, Dict, List, Optional
 
 logger = logging.getLogger(__name__)
 
-# what waits for a later slice of the port (ROADMAP.md, Queue A)
-_LATER = "{} is not ported yet (ROADMAP.md, Queue A item A3g-2)"
-
-
-def check_ported(config: Dict):
-    """Refuse a deployment config this port cannot serve yet: a
-    replica over several hosts is a gang of ranks in lockstep
-    (serve/sharded_replica.py in the JAX package)."""
-    if int(config.get("num_hosts") or 1) > 1:
-        raise NotImplementedError(
-            _LATER.format("a sharded replica (num_hosts > 1)"))
-
-
-def kill_group(group):
-    """Sharded replicas' gangs are never built here (``check_ported``),
-    so no group reaches this."""
-    raise NotImplementedError(_LATER.format("a sharded replica's gang"))
-
-
 def autoscale_decision(auto: Dict, hist, total_load: float, target: int,
                        now: float, up_since: Dict, down_since: Dict,
                        key) -> int:
@@ -178,8 +159,6 @@ class ServeController:
         node, controller ProxyState). grpc_servicer_functions: import
         paths of generated add_X_to_server functions registered on every
         gRPC proxy (reference: gRPCOptions.grpc_servicer_functions)."""
-        if grpc_port is not None or grpc_servicer_functions:
-            raise NotImplementedError(_LATER.format("the gRPC proxy"))
         stale = []
         with self._lock:
             if port is not None:
@@ -278,7 +257,25 @@ class ServeController:
                 except Exception:
                     logger.exception("http proxy start failed on %s",
                                      nid[:12])
-            # grpc_port stays None: set_http refuses it (A3g-2)
+            if grpc_port is not None and nid not in self._grpc_proxies:
+                try:
+                    from ray_tpu_torch.serve.grpc_proxy import GrpcProxy
+                    actor_cls = ray_tpu_torch.remote(GrpcProxy)
+                    proxy = actor_cls.options(
+                        name=f"SERVE_GRPC:{nid[:12]}", namespace="serve",
+                        max_concurrency=64, num_cpus=0.1,
+                        scheduling_strategy=NodeAffinitySchedulingStrategy(
+                            nid)).remote(grpc_port, me,
+                                         getattr(self, "_grpc_servicers",
+                                                 None))
+                    addr = ray_tpu_torch.get(proxy.ready.remote(),
+                                             timeout=60)
+                    with self._lock:
+                        self._grpc_proxies[nid] = proxy
+                        self._proxy_addrs.setdefault(nid, {})["grpc"] = addr
+                except Exception:
+                    logger.exception("grpc proxy start failed on %s",
+                                     nid[:12])
 
     def deploy_application(self, app_name: str, specs: List[Dict]):
         """specs: dependencies-first list of deployment specs."""
@@ -324,7 +321,13 @@ class ServeController:
         soft node affinity, so a full node degrades to the default
         policy instead of failing the build."""
         import ray_tpu_torch
-        check_ported(spec["config"])
+        if int(spec["config"].get("num_hosts") or 1) > 1:
+            # sharded replica = a gang of ReplicaShard actors; routers see
+            # only the rank-0 facade, the controller keeps the group
+            # record so retire/kill tears down the whole gang
+            from ray_tpu_torch.serve.sharded_replica import \
+                create_sharded_group
+            return create_sharded_group(spec)
         from ray_tpu_torch.serve.replica import Replica
         opts = dict(spec["config"].get("ray_actor_options") or {})
         max_ongoing = spec["config"].get("max_ongoing_requests", 16)
@@ -369,6 +372,7 @@ class ServeController:
         deleted while it was building."""
         if n <= 0:
             return
+        from ray_tpu_torch.serve.sharded_replica import kill_group
         import ray_tpu_torch
         try:
             for _ in range(n):
@@ -420,6 +424,7 @@ class ServeController:
         group = (dep.get("groups") or {}).pop(
             getattr(handle, "_actor_id", None), None)
         if group is not None:
+            from ray_tpu_torch.serve.sharded_replica import kill_group
             kill_group(group)
             return
         try:

@@ -53,12 +53,12 @@ class DeploymentConfig:
     # exports slo_burn_rate gauges + slo.violation timeline events
     slo_config: Optional["Any"] = None
     health_check_period_s: float = 5.0
-    # multi-host (slice-sharded) replicas: num_hosts > 1 makes each
-    # replica a gang of ReplicaShard actors joined into one
-    # process group; topology pins the gang onto one healthy slice,
-    # STRICT_SPREAD over its hosts (the JAX package's
-    # serve/sharded_replica.py; not ported yet: check_ported refuses
-    # num_hosts > 1, ROADMAP.md A3g-2)
+    # multi-host (sharded) replicas: num_hosts > 1 makes each replica a
+    # gang of ReplicaShard actors placed PACK and joined into one
+    # torch.distributed process group (serve/sharded_replica.py);
+    # topology would pin the gang onto one healthy slice, STRICT_SPREAD
+    # over its hosts, and is refused until slice gangs are ported
+    # (ROADMAP.md, Queue A item A3c-2)
     num_hosts: int = 1
     topology: Optional[str] = None
     # streaming resume (serve/handle.py): True when the callable opted

@@ -872,10 +872,34 @@ class ReplicaShell:
     def attach_shard(self, rank: int, world_size: int, group_name: str,
                      serialized_callable: bytes, init_args: tuple,
                      init_kwargs: Dict, is_function: bool) -> bool:
-        """Gang-aware attach, one rank of a sharded replica group (the
-        JAX package's serve/sharded_replica.py): not ported yet."""
-        from ray_tpu_torch.serve.controller import _LATER
-        raise NotImplementedError(_LATER.format("a sharded replica's gang"))
+        """Gang-aware attach: turn this warm shell into ONE RANK of a
+        sharded replica group (serve/sharded_replica.py). The fleet
+        manager checks out ``world_size`` shells atomically and runs
+        this on all of them CONCURRENTLY — setup_distributed's
+        rendezvous and the callable's lockstep ``on_shell_attach``
+        warmup both need every rank in flight at once. Chaos fires at
+        the same two points as a plain attach; one rank failing
+        discards the whole gang (partial gangs are never published)."""
+        from ray_tpu_torch._private import events, rpc
+        from ray_tpu_torch.serve.sharded_replica import ReplicaShard
+        rpc._maybe_inject_failure("shell_attach")
+        t0 = time.time()
+        shard = ReplicaShard(rank, world_size)
+        shard.setup_distributed(group_name)
+        shard.init_callable(serialized_callable, tuple(init_args),
+                            init_kwargs, is_function)
+        t1 = time.time()
+        events.record_complete("launch.shell_attach", t0, t1,
+                               category="launch", rank=rank)
+        hook = getattr(shard._callable, "on_shell_attach", None)
+        if hook is not None:
+            hook()
+            events.record_complete("launch.warmup", t1, time.time(),
+                                   category="launch", rank=rank)
+        rpc._maybe_inject_failure("shell_attach")
+        self._shard = shard
+        self._attached = True
+        return True
 
     def _require_attached(self):
         if not self._attached:

@@ -1005,11 +1005,6 @@ class PipelineStageActor:
                  chunk_builders: Optional[List[tuple]] = None):
         if chunk_builders is None:
             chunk_builders = [(stage_idx, builder)]
-        # the chaos spec is read from this actor's own environment (its
-        # runtime_env included), not from what the worker parsed before
-        # it became this actor
-        from ray_tpu_torch._private import rpc
-        rpc._CHAOS_SPEC = None
         self._rts = [
             StageRuntime(_build_definition(b, vs), stage_idx=vs,
                          n_stages=n_stages, n_microbatches=n_microbatches)

@@ -1,6 +1,6 @@
-"""Chaos-testing utilities (the port keeps those it tests with: the
-shared-memory create killer, the pipeline's stage killer, and Serve's
-replica killer and prefill-export killer). RPC-level
+"""Chaos-testing utilities (reference: ResourceKillerActor / RayletKiller
+python/ray/_private/test_utils.py:1433,1536 used by the chaos suites —
+kill random nodes during workloads and assert completion). RPC-level
 failure injection lives in _private/rpc.py behind
 RAY_TPU_TORCH_TESTING_RPC_FAILURE; the ``push_chunk`` key there covers
 both object-transfer transports (the msgpack chunk RPCs and the data
@@ -17,8 +17,52 @@ from __future__ import annotations
 
 import os
 import random
+import threading
 import time
 from typing import Dict, List, Optional
+
+
+class NodeKiller:
+    """Kills random worker nodes of a cluster_utils.Cluster at an
+    interval; never touches protected nodes (e.g. the head)."""
+
+    def __init__(self, cluster, interval_s: float = 2.0,
+                 protected_node_ids: Optional[List[str]] = None,
+                 max_kills: int = 1, seed: int = 0):
+        self.cluster = cluster
+        self.interval_s = interval_s
+        self.protected = set(protected_node_ids or [])
+        self.max_kills = max_kills
+        self.killed: List[str] = []
+        self._rng = random.Random(seed)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _loop(self):
+        while not self._stop.is_set() and len(self.killed) < self.max_kills:
+            if self._stop.wait(self.interval_s):
+                return
+            victims = [n for n in self.cluster.nodes
+                       if n.node_id not in self.protected
+                       and n.node_id not in self.killed]
+            if not victims:
+                continue
+            v = self._rng.choice(victims)
+            try:
+                v.kill()
+                self.killed.append(v.node_id)
+            except Exception:
+                pass
+
+    def start(self):
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
 
 
 class ShmCreateKiller:
@@ -66,6 +110,264 @@ class ShmCreateKiller:
                 "from the shm_create injection)")
 
 
+class ShmSpanCreateKiller(ShmCreateKiller):
+    """Arms a (child) process to SIGKILL itself mid-SPANNING-create —
+    inside the native span claim loop, while it holds BOTH the arena's
+    span mutex and a member stripe's mutex, with the descriptor still
+    CLAIMING and at least one stripe already marked span-owned. The
+    worst-case death of the weight-distribution plane: survivors must
+    repair on two levels (stripe EOWNERDEAD marks the span broken; span
+    EOWNERDEAD frees every claimed member stripe) and the half-claimed
+    span must be freed or invalidated WHOLE — never half.
+
+    Spec: ``RAY_TPU_TORCH_TESTING_SHM_FAILURE="shm_span_create=N"`` (the Nth
+    spanning create of the armed process dies). Same ``env()`` /
+    ``assert_killed`` usage as :class:`ShmCreateKiller`."""
+
+    def spec(self) -> str:
+        return f"shm_span_create={self.nth_create}"
+
+
+class BroadcastRelayKiller:
+    """Injects relay-node failure into tree broadcasts: every
+    ``h_request_push`` that carries a non-empty relay list (i.e. an
+    interior node of the binomial broadcast tree) fails with the given
+    probability, so the root's await observes a dead subtree and must
+    retry through the surviving holders. Leaf pushes (empty relay) are
+    untouched — exactly the partial-delivery shape a mid-broadcast relay
+    death leaves behind.
+
+    Spec: ``RAY_TPU_TORCH_TESTING_RPC_FAILURE="relay_push=p"``; the env must
+    be set BEFORE the daemon tree spawns (the spec is parsed once per
+    process)."""
+
+    SPEC_ENV = "RAY_TPU_TORCH_TESTING_RPC_FAILURE"
+
+    def __init__(self, probability: float = 1.0):
+        if not 0.0 < probability <= 1.0:
+            raise ValueError("probability must be in (0, 1]")
+        self.probability = probability
+
+    def spec(self) -> str:
+        return f"relay_push={self.probability}"
+
+    def env(self, base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+        e = dict(base if base is not None else os.environ)
+        prior = e.get(self.SPEC_ENV)
+        e[self.SPEC_ENV] = f"{prior},{self.spec()}" if prior else self.spec()
+        return e
+
+
+class PrefillExportKiller:
+    """Injects failure into the disaggregated-serving KV hand-off: the
+    prefill tier's ``prefill_export`` runs the injection hook at entry
+    AND right before returning (``serve/disagg.py``), so with
+    probability ``p`` an export dies either before any prefill work or
+    AFTER the payload object exists but before the hand-off completes —
+    the two halves of "prefill replica killed mid-export". The decode
+    tier must fall back to LOCAL prefill with exactly-once token
+    delivery preserved (nothing has streamed when the rung fails).
+
+    Spec: ``RAY_TPU_TORCH_TESTING_RPC_FAILURE="prefill_export=p"``; like the
+    other RPC-chaos specs it must be in the environment BEFORE the
+    victim process parses it (first injection check caches the spec).
+    Compose with :class:`ServeReplicaKiller` on the prefill deployment
+    to exercise the actor-death (rather than exception) variant."""
+
+    SPEC_ENV = "RAY_TPU_TORCH_TESTING_RPC_FAILURE"
+
+    def __init__(self, probability: float = 1.0):
+        if not 0.0 < probability <= 1.0:
+            raise ValueError("probability must be in (0, 1]")
+        self.probability = probability
+
+    def spec(self) -> str:
+        return f"prefill_export={self.probability}"
+
+    def env(self, base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+        e = dict(base if base is not None else os.environ)
+        prior = e.get(self.SPEC_ENV)
+        e[self.SPEC_ENV] = f"{prior},{self.spec()}" if prior else self.spec()
+        return e
+
+    def arm_local(self):
+        """Arm the CURRENT process (direct-instantiation tests): sets
+        the env var and resets rpc.py's parsed-spec cache so the next
+        injection check re-reads it. Pair with :meth:`disarm_local`."""
+        from ray_tpu_torch._private import rpc
+        os.environ[self.SPEC_ENV] = self.spec()
+        rpc._CHAOS_SPEC = None
+
+    @staticmethod
+    def disarm_local():
+        from ray_tpu_torch._private import rpc
+        os.environ.pop(PrefillExportKiller.SPEC_ENV, None)
+        rpc._CHAOS_SPEC = None
+
+
+class PeerExportKiller:
+    """Injects failure into the decode→decode KV fabric: a decode
+    replica's ``peer_export`` (serve/disagg.py) runs the injection hook
+    at entry AND right before returning, so with probability ``p`` an
+    export dies either before the live-trie fingerprint check or AFTER
+    the payload exists but before the peer receives it — the two halves
+    of "peer replica killed mid-export". The importing replica must
+    fall down its ladder (prefill hand-off, then LOCAL prefill) with
+    exactly-once token delivery preserved.
+
+    Spec: ``RAY_TPU_TORCH_TESTING_RPC_FAILURE="peer_export=p"``; like the
+    other RPC-chaos specs it must be in the environment BEFORE the
+    victim process parses it. Compose with :class:`ServeReplicaKiller`
+    on the decode deployment for the actor-death variant."""
+
+    SPEC_ENV = "RAY_TPU_TORCH_TESTING_RPC_FAILURE"
+
+    def __init__(self, probability: float = 1.0):
+        if not 0.0 < probability <= 1.0:
+            raise ValueError("probability must be in (0, 1]")
+        self.probability = probability
+
+    def spec(self) -> str:
+        return f"peer_export={self.probability}"
+
+    def env(self, base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+        e = dict(base if base is not None else os.environ)
+        prior = e.get(self.SPEC_ENV)
+        e[self.SPEC_ENV] = f"{prior},{self.spec()}" if prior else self.spec()
+        return e
+
+    def arm_local(self):
+        """Arm the CURRENT process (direct-instantiation tests): sets
+        the env var and resets rpc.py's parsed-spec cache so the next
+        injection check re-reads it. Pair with :meth:`disarm_local`."""
+        from ray_tpu_torch._private import rpc
+        os.environ[self.SPEC_ENV] = self.spec()
+        rpc._CHAOS_SPEC = None
+
+    @staticmethod
+    def disarm_local():
+        from ray_tpu_torch._private import rpc
+        os.environ.pop(PeerExportKiller.SPEC_ENV, None)
+        rpc._CHAOS_SPEC = None
+
+
+class ShellAttachKiller:
+    """Injects failure into the fleet plane's cold-start path: a
+    pre-warmed replica shell's ``attach`` (serve/fleet.py ReplicaShell)
+    runs the injection hook at entry AND after the callable is
+    constructed but before the shell reports ready — the two halves of
+    "shell killed mid-weight-attach". The fleet manager must discard
+    the poisoned shell and serve the revival through a FRESH shell or a
+    cold replica build; requests held at the router (they are parked
+    un-submitted until a replica is published) are therefore delivered
+    exactly once either way.
+
+    Spec: ``RAY_TPU_TORCH_TESTING_RPC_FAILURE="shell_attach=p"``; like the
+    other RPC-chaos specs the env must be set before the victim process
+    parses it (first injection check caches the spec). ``arm_local`` /
+    ``disarm_local`` reset the cache for in-process tests."""
+
+    SPEC_ENV = "RAY_TPU_TORCH_TESTING_RPC_FAILURE"
+
+    def __init__(self, probability: float = 1.0):
+        if not 0.0 < probability <= 1.0:
+            raise ValueError("probability must be in (0, 1]")
+        self.probability = probability
+
+    def spec(self) -> str:
+        return f"shell_attach={self.probability}"
+
+    def env(self, base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+        e = dict(base if base is not None else os.environ)
+        prior = e.get(self.SPEC_ENV)
+        e[self.SPEC_ENV] = f"{prior},{self.spec()}" if prior else self.spec()
+        return e
+
+    def arm_local(self):
+        """Arm the CURRENT process (direct-instantiation tests): sets
+        the env var and resets rpc.py's parsed-spec cache so the next
+        injection check re-reads it. Pair with :meth:`disarm_local`."""
+        from ray_tpu_torch._private import rpc
+        os.environ[self.SPEC_ENV] = self.spec()
+        rpc._CHAOS_SPEC = None
+
+    @staticmethod
+    def disarm_local():
+        from ray_tpu_torch._private import rpc
+        os.environ.pop(ShellAttachKiller.SPEC_ENV, None)
+        rpc._CHAOS_SPEC = None
+
+
+class GangRankKiller:
+    """Kills one NON-ZERO rank of a sharded serving replica gang
+    mid-decode: :class:`~ray_tpu_torch.serve.sharded.ShardedEngineReplica`
+    runs the ``gang_rank`` injection hook before every engine step on
+    ranks != 0, and when it fires the rank SIGKILLs its own process —
+    the crash shape (no exception crosses the actor boundary; the peer
+    simply stops answering while rank 0 is mid-stream).
+
+    What the recovery path must then deliver, in order:
+
+    1. rank 0's collective with the dead peer fails (gloo sees the
+       connection close, or the gang's process-group timeout expires)
+       and its bounded peer-drain wait fails → the gang WEDGES
+       (``_wedged``) — a half-dead SPMD world is never reused;
+    2. ``check_health`` raises → the controller retires every member +
+       the placement group as one unit (whole-gang drain);
+    3. the fleet manager revives through ``checkout_many`` +
+       ``attach_shard`` (gang-aware pre-warm) or a cold gang build;
+    4. the severed stream re-routes with ``resume_tokens`` — delivered
+       tokens ride the prompt, so the client sees each token exactly
+       once and a greedy stream continues bit-identically.
+
+    Spec: ``RAY_TPU_TORCH_TESTING_RPC_FAILURE="gang_rank=p"``, or with
+    ``at_call=N`` ``"gang_rank=#N"``: only the Nth engine step of the
+    armed rank's process fires (counted from when the spec reached the
+    process), a death at a fixed point mid-decode. The env must reach the
+    victim actor through its ``runtime_env``: the worker makes the RPC
+    layer parse the spec anew when a runtime env sets it
+    (``_private/worker.py``). ``arm_local`` /
+    ``disarm_local`` reset the cache for in-process tests (rank 0 never
+    checks the hook, so arming a single-process gang is inert — the
+    unit tier patches ``os.kill`` to observe the would-be death)."""
+
+    SPEC_ENV = "RAY_TPU_TORCH_TESTING_RPC_FAILURE"
+
+    def __init__(self, probability: float = 1.0, *,
+                 at_call: Optional[int] = None):
+        if not 0.0 < probability <= 1.0:
+            raise ValueError("probability must be in (0, 1]")
+        if at_call is not None and at_call < 1:
+            raise ValueError("at_call must be >= 1")
+        self.probability = probability
+        self.at_call = at_call
+
+    def spec(self) -> str:
+        if self.at_call is not None:
+            return f"gang_rank=#{self.at_call}"
+        return f"gang_rank={self.probability}"
+
+    def env(self, base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
+        e = dict(base if base is not None else os.environ)
+        prior = e.get(self.SPEC_ENV)
+        e[self.SPEC_ENV] = f"{prior},{self.spec()}" if prior else self.spec()
+        return e
+
+    def arm_local(self):
+        """Arm the CURRENT process (direct-instantiation tests): sets
+        the env var and resets rpc.py's parsed-spec cache so the next
+        injection check re-reads it. Pair with :meth:`disarm_local`."""
+        from ray_tpu_torch._private import rpc
+        os.environ[self.SPEC_ENV] = self.spec()
+        rpc._CHAOS_SPEC = None
+
+    @staticmethod
+    def disarm_local():
+        from ray_tpu_torch._private import rpc
+        os.environ.pop(GangRankKiller.SPEC_ENV, None)
+        rpc._CHAOS_SPEC = None
+
+
 class StageKiller:
     """Injects stage loss into the elastic MPMD pipeline trainer
     (train/mpmd.py) through BOTH failure channels the recovery path must
@@ -95,8 +397,9 @@ class StageKiller:
     the armed process fires, a death at a fixed point (a stage actor
     checks ``stage_step`` once per forward and once per backward). Like
     the other RPC-chaos specs the env must be set before the victim
-    process parses it (first injection check caches the spec; a stage
-    actor parses it anew in its constructor). ``arm_local`` /
+    process parses it (first injection check caches the spec; a spec
+    set by an actor's ``runtime_env`` is parsed anew, see
+    ``GangRankKiller``). ``arm_local`` /
     ``disarm_local`` reset the cache for in-process tests."""
 
     SPEC_ENV = "RAY_TPU_TORCH_TESTING_RPC_FAILURE"
@@ -156,31 +459,32 @@ class StageKiller:
             pass
 
 
-class PrefillExportKiller:
-    """Injects failure into the disaggregated-serving KV hand-off: the
-    prefill tier's ``prefill_export`` runs the injection hook at entry
-    AND right before returning (``serve/disagg.py``), so with
-    probability ``p`` an export dies either before any prefill work or
-    AFTER the payload object exists but before the hand-off completes —
-    the two halves of "prefill replica killed mid-export". The decode
-    tier must fall back to LOCAL prefill with exactly-once token
-    delivery preserved (nothing has streamed when the rung fails).
+class GcsRpcDelayer:
+    """Injects latency into ONE named GCS handler: the observability
+    wrapper (``_private/gcs_obs.py``) checks the spec before dispatching
+    each ``h_*`` RPC and sleeps the armed handler on the event loop
+    (``asyncio.sleep`` — other handlers keep flowing, exactly the shape
+    of one slow table scan wedging a single RPC family). Used to drive
+    the slow-handler span path (``gcs.rpc`` runtime events over
+    ``gcs_slow_rpc_ms``) and the p99 histogram tail deterministically.
 
-    Spec: ``RAY_TPU_TORCH_TESTING_RPC_FAILURE="prefill_export=p"``; like the
-    other RPC-chaos specs it must be in the environment BEFORE the
-    victim process parses it (first injection check caches the spec).
-    Compose with :class:`ServeReplicaKiller` on the prefill deployment
-    to exercise the actor-death (rather than exception) variant."""
+    Spec: ``RAY_TPU_TORCH_TESTING_GCS_RPC_DELAY="gcs_rpc=handler:ms"`` where
+    ``handler`` is the RPC method name without the ``h_`` prefix (e.g.
+    ``gcs_rpc=kv_get:75``); comma-compose entries to delay several
+    handlers. The env must reach the GCS process before its first RPC
+    (the spec is parsed once and cached); ``arm_local`` /
+    ``disarm_local`` reset the cache for in-process GcsServer tests."""
 
-    SPEC_ENV = "RAY_TPU_TORCH_TESTING_RPC_FAILURE"
+    SPEC_ENV = "RAY_TPU_TORCH_TESTING_GCS_RPC_DELAY"
 
-    def __init__(self, probability: float = 1.0):
-        if not 0.0 < probability <= 1.0:
-            raise ValueError("probability must be in (0, 1]")
-        self.probability = probability
+    def __init__(self, handler: str, delay_ms: float):
+        if delay_ms < 0:
+            raise ValueError("delay_ms must be >= 0")
+        self.handler = handler
+        self.delay_ms = delay_ms
 
     def spec(self) -> str:
-        return f"prefill_export={self.probability}"
+        return f"gcs_rpc={self.handler}:{self.delay_ms}"
 
     def env(self, base: Optional[Dict[str, str]] = None) -> Dict[str, str]:
         e = dict(base if base is not None else os.environ)
@@ -189,18 +493,18 @@ class PrefillExportKiller:
         return e
 
     def arm_local(self):
-        """Arm the CURRENT process (direct-instantiation tests): sets
-        the env var and resets rpc.py's parsed-spec cache so the next
-        injection check re-reads it. Pair with :meth:`disarm_local`."""
-        from ray_tpu_torch._private import rpc
+        """Arm the CURRENT process (in-process GcsServer tests): sets
+        the env var and resets gcs_obs's parsed-spec cache so the next
+        dispatch re-reads it. Pair with :meth:`disarm_local`."""
+        from ray_tpu_torch._private import gcs_obs
         os.environ[self.SPEC_ENV] = self.spec()
-        rpc._CHAOS_SPEC = None
+        gcs_obs._DELAY_SPEC = None
 
     @staticmethod
     def disarm_local():
-        from ray_tpu_torch._private import rpc
-        os.environ.pop(PrefillExportKiller.SPEC_ENV, None)
-        rpc._CHAOS_SPEC = None
+        from ray_tpu_torch._private import gcs_obs
+        os.environ.pop(GcsRpcDelayer.SPEC_ENV, None)
+        gcs_obs._DELAY_SPEC = None
 
 
 class ServeReplicaKiller:
@@ -305,4 +609,93 @@ class ServeReplicaKiller:
             except Exception:
                 pass
             time.sleep(0.5)
+        return False
+
+
+class QuotaLeaseRevoker:
+    """Revoke a proxy's tenant-quota lease at the GCS mid-traffic and
+    assert the no-over-admission invariant of the lease protocol
+    (serve/fleet.py QuotaLeaseClient + _private/gcs.py quota_lease_*):
+
+      * the GCS ESCROWS the revoked share — the lease row stays in the
+        denominator of the per-proxy split, so surviving proxies' shares
+        do NOT grow while the revoked proxy may still be admitting;
+      * the revoked proxy learns of the revocation on its next renew and
+        degrades every local bucket to ``quota_lease_conservative_frac``
+        of its last share (strictly below the escrowed share), so the
+        cluster-wide admitted rate can only FALL during the window;
+      * the proxy re-acquires on a later renew tick and is restored to a
+        full (re-split) share — degradation is transient, not sticky.
+
+    Unlike the RPC-failure killers this is not env-spec injection: the
+    action is a real ``quota_lease_revoke`` control call against a live
+    GCS, so the revoker holds a ``gcs_call``-style callable (e.g.
+    ``worker.gcs_call`` or a test's fake-GCS shim)."""
+
+    def __init__(self, gcs_call, seed: int = 0):
+        self._call = gcs_call
+        self.revoked: List[str] = []
+        self._rng = random.Random(seed)
+
+    def status(self) -> Dict:
+        """Raw ``quota_lease_status`` row: epoch, lease table (with
+        per-row ``revoked`` flags), cluster tenant burn totals."""
+        return self._call("quota_lease_status") or {}
+
+    def lease_ids(self, live_only: bool = True) -> List[str]:
+        rows = self.status().get("leases") or []
+        return [r["proxy_id"] for r in rows
+                if not (live_only and r.get("revoked"))]
+
+    def revoke(self, proxy_id: str) -> bool:
+        """Revoke one proxy's lease. Returns False when the GCS has no
+        such lease (already expired/released)."""
+        ok = bool(self._call("quota_lease_revoke", proxy_id=proxy_id))
+        if ok:
+            self.revoked.append(proxy_id)
+        return ok
+
+    def revoke_one(self) -> Optional[str]:
+        """Revoke a random live lease; returns its proxy_id or None when
+        no live lease exists."""
+        ids = self.lease_ids(live_only=True)
+        if not ids:
+            return None
+        pid = self._rng.choice(sorted(ids))
+        return pid if self.revoke(pid) else None
+
+    def wait_for_degraded(self, lease_client, timeout_s: float = 15.0,
+                          poke=None) -> bool:
+        """Block until ``lease_client`` (the victim proxy's
+        QuotaLeaseClient) has observed the revocation and entered
+        conservative mode. The client only learns on a renew, and
+        renews ride the request path — pass ``poke`` (a zero-arg
+        callable, e.g. ``lambda: client.maybe_renew(now)``) to drive
+        ticks when no traffic is flowing."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if poke is not None:
+                try:
+                    poke()
+                except Exception:
+                    pass
+            if lease_client.revoked:
+                return True
+            time.sleep(0.05)
+        return False
+
+    def wait_for_release(self, lease_client, timeout_s: float = 15.0,
+                         poke=None) -> bool:
+        """Block until the victim has re-acquired a live lease (revoked
+        flag cleared) — the restore half of the chaos round-trip."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if poke is not None:
+                try:
+                    poke()
+                except Exception:
+                    pass
+            if not lease_client.revoked and lease_client.stats()["epoch"]:
+                return True
+            time.sleep(0.05)
         return False

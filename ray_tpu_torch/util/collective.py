@@ -78,11 +78,13 @@ def _torch_device():
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
-def _init_torch_distributed(world_size: int, rank: int, group_name: str):
+def _init_torch_distributed(world_size: int, rank: int, group_name: str,
+                            timeout_s: Optional[float] = None):
     """Start ``torch.distributed``'s default process group (NCCL with a
     card, gloo without) from a ``TCPStore`` that rank 0 serves on a free
     port of its host and publishes in the GCS KV. Nothing to do when the
-    process group of this world already runs."""
+    process group of this world already runs. ``timeout_s`` bounds each
+    collective (torch's default, 30 minutes for gloo, otherwise)."""
     import torch.distributed as dist
 
     from ray_tpu_torch.parallel.mesh import init_world
@@ -105,7 +107,7 @@ def _init_torch_distributed(world_size: int, rank: int, group_name: str):
         host, port = _kv_get(key).decode().rsplit(":", 1)
         store = dist.TCPStore(host, int(port), world_size, is_master=False)
     init_world(store=store, rank=rank, world_size=world_size,
-               device=_torch_device())
+               device=_torch_device(), timeout_s=timeout_s)
 
 
 def destroy_collective_group(group_name: str = "default"):

@@ -91,12 +91,15 @@ def test_threaded_loop_streams_and_stops(tiny):
         eng.submit([1, 2, 3])
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "mesh"),
-])
-def test_features_not_ported_raise(tiny, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        InferenceEngine(tiny[2], device="cpu", **kw)
+def test_a_mesh_that_is_not_one_raises_as_jax(tiny):
+    """The sharded engine is ported (tests/test_torch_engine_mesh.py); a
+    ``mesh`` that is not a mesh fails as the JAX engine's does."""
+    jmodel, params, tmodel = tiny
+    with pytest.raises(AttributeError):
+        JaxEngine(jmodel, params, JaxEngineConfig(**ENGINE), mesh=object())
+    with pytest.raises(AttributeError):
+        InferenceEngine(tmodel, EngineConfig(**ENGINE), device="cpu",
+                        mesh=object())
 
 
 def test_engine_features_are_checked_as_jax(tiny):

@@ -128,7 +128,15 @@ SERVE_MODULES = ("ray_tpu_torch.serve", "ray_tpu_torch.serve.api",
                  "ray_tpu_torch.serve.multiplex",
                  "ray_tpu_torch.serve.proxy", "ray_tpu_torch.serve.replica",
                  "ray_tpu_torch.serve.schema", "ray_tpu_torch.serve.slo",
-                 "ray_tpu_torch.serve.weights")
+                 "ray_tpu_torch.serve.weights",
+                 # sharded serving, the gRPC ingress and the chaos hooks:
+                 # the controller, the gRPC proxy and every gang rank
+                 # import them before any model is built
+                 "ray_tpu_torch.serve.sharded",
+                 "ray_tpu_torch.serve.sharded_replica",
+                 "ray_tpu_torch.serve.grpc_proxy",
+                 "ray_tpu_torch.util.serve_grpc_demo",
+                 "ray_tpu_torch.util.chaos")
 
 
 def test_serve_is_scanned_and_imports_no_torch():
@@ -146,7 +154,10 @@ def test_serve_is_scanned_and_imports_no_torch():
            "ray_tpu_torch.inference.api"} <= scanned
     launched = {"ServeController": "ray_tpu_torch.serve.controller",
                 "HttpProxy": "ray_tpu_torch.serve.proxy",
-                "Replica": "ray_tpu_torch.serve.replica"}
+                "Replica": "ray_tpu_torch.serve.replica",
+                "GrpcProxy": "ray_tpu_torch.serve.grpc_proxy",
+                "ReplicaShard": "ray_tpu_torch.serve.sharded_replica",
+                "ShardedEngineReplica": "ray_tpu_torch.serve.sharded"}
     code = ("import importlib, sys\n"
             f"for m in {SERVE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -158,6 +169,20 @@ def test_serve_is_scanned_and_imports_no_torch():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_serve_stubs_are_gone_and_slice_gangs_name_a3c2():
+    """No module of the port still raises for Serve's remaining pieces
+    (ROADMAP item A3g-2 is ported: no file names it), and a gang on a
+    slice topology, which waits for A3c-2, is refused naming it."""
+    hits = [f"{f.relative_to(ROOT)}:{i}" for f in _port_files()
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if "A3g-2" in line]
+    assert not hits, hits
+    from ray_tpu_torch.serve.sharded_replica import refuse_topology
+    refuse_topology({"num_hosts": 2})
+    with pytest.raises(NotImplementedError, match="A3c-2"):
+        refuse_topology({"num_hosts": 2, "topology": "v4-16"})
 
 
 CONTROL_PLANE = ("ray_tpu_torch/_private/gcs.py",

@@ -304,3 +304,46 @@ def test_step_scope_block_waits_for_the_card():
     assert prof.last["compute_ms"] > 0
     with prof.step() as s:
         s.block({"cpu": torch.ones(2)})
+
+
+@pytest.mark.cuda
+def test_mesh_engine_equals_engine_on_card():
+    """At llama-debug size (bf16) on the card, InferenceEngine over a
+    one-card mesh (a world of one rank, NCCL) gives the same greedy
+    tokens as the engine without a mesh, on requests that arrive while
+    others decode. The engines attend through the cache and launch no
+    flash kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ray_tpu_torch.inference import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import MODEL_REGISTRY, TransformerLM, init_params
+    from ray_tpu_torch.parallel import MeshConfig, init_world, make_mesh
+    cfg = MODEL_REGISTRY["llama-debug"]
+    weights = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda")
+    init_world(device="cuda")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (10, 37, 70, 5)]
+    out = {}
+    for name in ("no mesh", "mesh"):
+        mesh = make_mesh(MeshConfig(fsdp=1), "cuda") if name == "mesh" \
+            else None
+        model = TransformerLM(cfg, device="meta")
+        model.load_state_dict({k: v.clone() for k, v in weights.items()},
+                              assign=True)
+        eng = InferenceEngine(model, EngineConfig(
+            n_slots=4, max_len=256, prefill_chunk=32, prefill_budget=64),
+            device="cuda", mesh=mesh)
+        before = ops.flash_attention_fwd.launches
+        hs = [eng.submit(p, max_new_tokens=12) for p in prompts[:3]]
+        while hs[0].first_token_t is None:
+            eng.step()
+        hs.append(eng.submit(prompts[3], max_new_tokens=9))
+        for _ in range(400):
+            if all(h.finish_reason for h in hs):
+                break
+            eng.step()
+        out[name] = [h.tokens() for h in hs]
+        assert ops.flash_attention_fwd.launches == before
+    assert [len(t) for t in out["mesh"]] == [12, 12, 12, 9]
+    assert out["mesh"] == out["no mesh"]

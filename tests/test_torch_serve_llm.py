@@ -169,8 +169,17 @@ def test_llm_deployment_tokens_equal_jax(weights):
 
 
 def test_mesh_and_device_arguments(weights):
-    with pytest.raises(NotImplementedError, match="A3g-2"):
-        LLMDeployment(CFG, mesh=object(), device="cpu")
+    """A ``mesh`` that is not a mesh fails as in the JAX deployment (its
+    engine's AttributeError); the device defaults to the card."""
+    tree, arrays = weights
+    with pytest.raises(AttributeError):
+        JaxLLMDeployment(JaxConfig(**SHAPE, dtype=jnp.float32,
+                                   param_dtype=jnp.float32, remat=False),
+                         params_fn=lambda: tree, weights_key=None,
+                         mesh=object())
+    with pytest.raises(AttributeError):
+        LLMDeployment(CFG, params_fn=lambda: arrays, weights_key=None,
+                      mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             LLMDeployment(CFG)        # device defaults to "cuda"

@@ -178,6 +178,91 @@ def serve(rank, world, workdir):
     return out
 
 
+def drive_engine(engine, prompts, new, max_steps=400):
+    """The same schedule for any engine (the JAX package's or the port's,
+    with or without a mesh), stepped by the caller in lockstep: the first
+    prompt is admitted and decodes its first token, then the rest arrive
+    together (so a prompt sharing the first one's prefix hits the prefix
+    cache). Returns every request's greedy tokens."""
+    import queue
+
+    def run(done):
+        for _ in range(max_steps):
+            engine.step()
+            if done():
+                return
+        raise AssertionError("engine did not get there")
+
+    handles = [engine.submit(prompts[0], max_new_tokens=new[0])]
+    run(lambda: handles[0].first_token_t is not None)
+    handles += [engine.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts[1:], new[1:])]
+    run(lambda: all(h.finish_reason is not None for h in handles))
+    out = []
+    for h in handles:
+        toks = []
+        while True:
+            try:
+                toks.append(int(h.next(timeout=0)))
+            except (StopIteration, queue.Empty):
+                break
+        out.append(toks)
+    return out
+
+
+def engine_spec(inputs, variant):
+    """(EngineConfig kwargs, port spec) of one engine variant."""
+    from ray_tpu_torch.models import TransformerConfig
+    kw = dict(inputs["engine"])
+    if variant == "int8":
+        kw.update(prefix_cache_slots=2, kv_quant="int8")
+    spec = None
+    if variant == "spec":
+        weights = inputs["draft_weights"]
+        spec = {"draft_model": TransformerConfig(**inputs["draft"],
+                                                 dtype=torch.float32),
+                "k": inputs["k"], "draft_params_fn": lambda: weights}
+    return kw, spec
+
+
+def _engine_layouts(eng):
+    """{tensor: (mesh spec, DTensor placements)} of the engine's device
+    tensors (a replicated tensor's spec is ``()``, as JAX prints it)."""
+    specs = {"pool_k": eng._pool_spec, "pool_v": eng._pool_spec,
+             "draft_pool_k": eng._draft_pool_spec,
+             "draft_pool_v": eng._draft_pool_spec}
+    named = {"pool_k": eng._pool_k, "pool_v": eng._pool_v,
+             "draft_pool_k": eng._dpool_k, "draft_pool_v": eng._dpool_v,
+             "blocks_k": eng._blocks_k, "blocks_v": eng._blocks_v,
+             "blocks_k_scale": eng._blocks_ks,
+             "blocks_v_scale": eng._blocks_vs}
+    return {n: (tuple(specs.get(n) or ()), tuple(t.placements))
+            for n, t in named.items() if t is not None}
+
+
+def engine(rank, world, workdir):
+    """The sharded engine in lockstep (every rank submits the same prompts
+    and steps alike) on each variant of ``inputs["variants"]``: its greedy
+    tokens and, under the mesh, its tensors' layouts."""
+    from ray_tpu_torch.inference import EngineConfig, InferenceEngine
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    mesh = make_mesh(LAYOUTS[inputs["layout"]], "cpu")
+    out = {}
+    for variant in inputs["variants"]:
+        model = TransformerLM(config(inputs["model"]), device="cpu")
+        model.load_state_dict(inputs["weights"])
+        kw, spec = engine_spec(inputs, variant)
+        eng = InferenceEngine(model, EngineConfig(**kw), device="cpu",
+                              mesh=mesh, spec=spec)
+        out[variant] = {"tokens": drive_engine(eng, inputs["prompts"],
+                                               inputs["new"]),
+                        "placements": _engine_layouts(eng),
+                        "weights": {n: tuple(p.placements)
+                                    for n, p in model.named_parameters()},
+                        "stats": eng.stats()}
+    return out
+
+
 moe_train = _case(("e2f2",), steps=4)
 
 

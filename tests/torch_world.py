@@ -8,7 +8,8 @@ process group from a ``FileStore`` in ``workdir`` and calls
 not import JAX. Rank 0's return value comes back (``torch.save`` through
 ``workdir``). When any rank fails, the supervisor kills the others at once;
 when the world outlives ``timeout`` seconds, the whole process group is
-killed. Either way the test fails with the ranks' errors, and never hangs.
+killed. Either way the test fails with the ranks' errors (and the Python
+stack of a rank that died on a fatal signal), and never hangs.
 """
 
 from __future__ import annotations
@@ -64,6 +65,11 @@ class World:
                 f"{out.decode(errors='replace')[-2000:]}")
         if proc.returncode != 0:
             errs = "".join(p.read_text() for p in sorted(workdir.glob("err*")))
+            # a rank that died on a fatal signal (SIGSEGV, SIGABRT from
+            # glibc's malloc checks, ...) left its Python stack here
+            errs += "".join(f"rank {p.name[5:]} died:\n{p.read_text()}"
+                            for p in sorted(workdir.glob("fatal*"))
+                            if p.read_text().strip())
             raise AssertionError(
                 f"{name} failed (rc {proc.returncode}):\n{errs[-6000:]}\n"
                 f"{out.decode(errors='replace')[-2000:]}")
@@ -90,6 +96,7 @@ def _rank_main(target: str, rank: int, world_size: int, workdir: Path):
 
     stacks = open(workdir / f"stack{rank}", "w")
     faulthandler.register(signal.SIGUSR1, file=stacks)
+    faulthandler.enable(file=open(workdir / f"fatal{rank}", "w"))
     torch.set_num_threads(1)
     init_world(store=dist.FileStore(str(workdir / "store"), world_size),
                rank=rank, world_size=world_size, device="cpu")
