@@ -236,11 +236,38 @@ Phases, each of which must pass (any failure exits non-zero):
     InferenceEngine(mesh=<one-card mesh>) on the same model in this
     process: the tokens must be equal. Phase 18 launches no flash kernel,
     in the replica or in this process (sharded_serve_launches 0/0/0).
+19. RL on the card (ray_tpu_torch.rl), printed after phase 18 and before
+    the kernels line. (a) The gymnasium version (or that it is not
+    installed) and the card line. (b) Each learner's update on the card
+    held against the same update on the CPU, from the same seeded weights
+    and batch in fp32 (TF32 off): PPO's whole update_from_batch at the
+    CartPole config (6 epochs x 4 minibatches of 128, the (64, 64) net),
+    IMPALA's and APPO's update_from_trajectory with the LSTM and the conv
+    net, 8 DQN steps on prioritized minibatches, 8 SAC steps with the
+    normal draws given to both, and one BC train(): the largest weight
+    difference of each must be within RL_WEIGHT_TOL, and each update's
+    first call on both devices is printed; then, warm, each run's time
+    on the card, its ms per minibatch update, its FLOPs (count_flops) and
+    their share of the fp32 peak, PPO's runtime_rl_update_mfu and the
+    device's busy share of a profiled run. (c) Where gymnasium imports, on a
+    fresh runtime: PPO on CartPole-v1 with two CPU env-runner actors
+    (4 envs x 64 steps each) and the learner on the card must reach an
+    episode_return_mean of 150 within 40 iterations (the JAX package's
+    own gate, tests/test_rl_regression.py); per iteration the sample
+    time, the learn time, env steps/s, the learner's ms per minibatch,
+    runtime_rl_update_mfu and (on every other iteration, under
+    torch.profiler) the device's busy share of the learn window are
+    printed. Then one APPO iteration with use_lstm=True on
+    ray_tpu_torch/RepeatAfterMe-v0 and one SAC iteration on Pendulum-v1,
+    with the same figures. RL launches no flash kernel (rl_launches
+    0/0/0); after shutdown() no process or arena of the session may
+    remain; the phase's wall time is printed. Without gymnasium (c) is
+    left out and the smoke says so.
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
 Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
-9, 10, 12, each part of 13, 16 (b), 18 (b)) and read just after it; phase 14's stage
+9, 10, 12, each part of 13, 16 (b), 18 (b), 19 (c)) and read just after it; phase 14's stage
 actors and phase 17's train workers are fresh processes whose counts
 start at 0, and the trainer (the loop) sums what each reports per step; launches made to compare or time a
 kernel (2, 5, the remat checks of 7 and 10, 11, phase 12's no-mesh
@@ -321,6 +348,19 @@ SPEC_MAX_DIFFERING = 1
 # a self-draft proposes with the decode step's numbers: near-ties aside it
 # is always accepted
 SELF_DRAFT_MIN_ACCEPT = 0.9
+# phase 19 (b): an RL learner's weights after its update on the card
+# against the same update on the CPU, fp32 with TF32 off. The two devices
+# sum the same products in another order (~1e-7 relative), and Adam
+# divides each step by sqrt(v): where a gradient is at that rounding
+# level its step can move by up to the learning rate (1e-3 at most here)
+# times the rounding's share of the gradient, so a weight moves by far
+# less than 1e-4 over the few steps held. The CPU tests hold the same
+# updates to JAX's at 2e-5 (tests/test_torch_rl_learners.py)
+RL_WEIGHT_TOL = 1e-4
+# phase 19 (c): the JAX package's own PPO gate on CartPole-v1
+# (tests/test_rl_regression.py::test_ppo_cartpole_threshold)
+RL_GATE_RETURN = 150.0
+RL_GATE_ITERS = 40
 
 # every kernel's bf16 instantiation must run on the tensor cores, fed by TMA
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -3939,6 +3979,382 @@ def run_sharded_serve(models, inference, ops, card, device="cuda",
     return total
 
 
+# ------------------------------------------------------------- phase 19
+
+def _gym_version():
+    try:
+        import gymnasium
+    except ImportError:
+        return None
+    return gymnasium.__version__
+
+
+def _timed_ms(fn, device):
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _profiled(fn, device):
+    """``fn()``, timed, and on the card under torch.profiler: (its output,
+    the device's kernel time or None on the CPU, the call's host time;
+    ms)."""
+    from contextlib import nullcontext
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.trace_serving import busy_ms
+    trace = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+             if device == "cuda" else nullcontext())
+    with trace:
+        out, ms = _timed_ms(fn, device)
+    return out, busy_ms(trace) if device == "cuda" else None, ms
+
+
+def _ppo_config(device):
+    """The CartPole-v1 PPO config of the JAX package's gate
+    (tests/test_rl_regression.py::test_ppo_cartpole_threshold), its
+    learner on ``device``."""
+    from ray_tpu_torch.rl import AlgorithmConfig
+    return (AlgorithmConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                         rollout_fragment_length=64)
+            .training(train_batch_size=512, minibatch_size=128,
+                      num_epochs=6, lr=3e-4, entropy_coeff=0.01)
+            .learners(device=device))
+
+
+def _rl_cfg(**kw):
+    """A learner's config dict for the learners built by hand in (b):
+    phase 19 (c)'s CartPole PPO values unless overridden."""
+    cfg = dict(obs_shape=[4], action_spec={"type": "discrete", "n": 2},
+               hidden_sizes=(64, 64), lr=3e-4, grad_clip=0.5,
+               clip_param=0.2, vf_loss_coeff=0.5, entropy_coeff=0.01,
+               minibatch_size=128, num_epochs=6, seed=0, gamma=0.99,
+               lambda_=0.95, tau=0.005, initial_alpha=0.2,
+               target_entropy=None, target_update_freq=2)
+    cfg.update(kw)
+    return cfg
+
+
+def _rl_trajectory(rng, T, B, obs_shape, n_actions, hidden=None):
+    out = {"obs": rng.random((T, B) + tuple(obs_shape)).astype(np.float32),
+           "actions": rng.integers(0, n_actions, (T, B)).astype(np.int64),
+           "behavior_logp": (np.log(1.0 / n_actions)
+                             + 0.3 * rng.normal(size=(T, B)))
+           .astype(np.float32),
+           "rewards": rng.normal(size=(T, B)).astype(np.float32),
+           "dones": (rng.random((T, B)) < 0.1).astype(np.float32),
+           "bootstrap_obs": rng.random((B,) + tuple(obs_shape))
+           .astype(np.float32),
+           "bootstrap_value": rng.normal(size=B).astype(np.float32)}
+    if hidden:
+        for k in ("initial_state_c", "initial_state_h"):
+            out[k] = (0.3 * rng.normal(size=(B, hidden))).astype(np.float32)
+    return out
+
+
+def _rl_weights(learner):
+    """Every weight a learner updates, by name (numpy, on the host); a
+    LearnerGroup's as its get_weights() hands them to the runners."""
+    if hasattr(learner, "local"):            # a LearnerGroup
+        return {f"group.{k}": v for k, v in learner.get_weights().items()}
+    nets = {name: getattr(learner, name) for name in
+            ("net", "target_net", "pi", "q", "q_target")
+            if isinstance(getattr(learner, name, None), torch.nn.Module)}
+    if hasattr(learner, "module"):
+        nets["module"] = learner.module.net
+    out = {f"{n}.{k}": v.detach().cpu().numpy()
+           for n, net in nets.items() for k, v in net.state_dict().items()}
+    if hasattr(learner, "log_alpha"):
+        out["log_alpha"] = learner.log_alpha.detach().cpu().numpy()
+    return out
+
+
+def _rl_copy(src, dst):
+    src, dst = getattr(src, "local", src), getattr(dst, "local", dst)
+    for name in ("net", "target_net", "pi", "q", "q_target"):
+        if isinstance(getattr(src, name, None), torch.nn.Module):
+            getattr(dst, name).load_state_dict(getattr(src, name)
+                                               .state_dict())
+    if hasattr(src, "module"):
+        dst.module.net.load_state_dict(src.module.net.state_dict())
+
+
+def rl_learner_holds(card, device):
+    """Phase 19 (b): each learner's update on ``device`` against the same
+    update on the CPU, from the same weights and inputs, then once warm
+    (timed, and once under ``count_flops``). PPO goes the way PPO builds
+    its learners: ``AlgorithmConfig.learners(device=)`` → ``LearnerGroup``
+    → ``update_from_batch`` → ``get_weights`` for the runners' sync; one
+    more of its updates is traced for the device's busy share."""
+    from ray_tpu_torch.rl.algorithm import learner_config
+    from ray_tpu_torch.rl.appo import AppoLearner
+    from ray_tpu_torch.rl.dqn import DQNLearner
+    from ray_tpu_torch.rl.impala import ImpalaLearner
+    from ray_tpu_torch.rl.learner import LearnerGroup, to_device
+    from ray_tpu_torch.rl.offline import BC, BCConfig
+    from ray_tpu_torch.rl.replay_buffer import PrioritizedReplayBuffer
+    from ray_tpu_torch.rl.sac import SACLearner
+    from ray_tpu_torch.util.profiling import count_flops
+
+    rng = np.random.default_rng(19)
+    n = 512
+    ppo_batch = {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+                 "actions": rng.integers(0, 2, n).astype(np.int64),
+                 "logp": (np.log(0.5) + 0.3 * rng.normal(size=n))
+                 .astype(np.float32),
+                 "advantages": rng.normal(size=n).astype(np.float32),
+                 "value_targets": rng.normal(size=n).astype(np.float32)}
+    lstm = _rl_cfg(obs_shape=[2], hidden_sizes=(64,), use_lstm=True,
+                   lr=2e-3, grad_clip=40.0, gamma=0.9, clip_param=0.3,
+                   entropy_coeff=0.003, num_epochs=4)
+    conv = _rl_cfg(obs_shape=[8, 8, 1],
+                   action_spec={"type": "discrete", "n": 4}, lr=1e-3,
+                   grad_clip=40.0, gamma=0.95, num_epochs=2)
+    lstm_trajs = [_rl_trajectory(rng, 32, 8, (2,), 2, hidden=64)
+                  for _ in range(2)]
+    conv_trajs = [_rl_trajectory(rng, 32, 8, (8, 8, 1), 4)
+                  for _ in range(2)]
+    q_data = {"obs": rng.normal(size=(1024, 4)).astype(np.float32),
+              "actions": rng.integers(0, 2, 1024).astype(np.int64),
+              "rewards": rng.normal(size=1024).astype(np.float32),
+              "dones": (rng.random(1024) < 0.05).astype(np.float32),
+              "next_obs": rng.normal(size=(1024, 4)).astype(np.float32)}
+    buf = PrioritizedReplayBuffer(1024, seed=0)
+    buf.add(q_data)
+    buf.update_priorities(np.arange(1024), rng.normal(size=1024))
+    q_mbs = [buf.sample(128) for _ in range(8)]
+    sac_mbs = [{"obs": rng.normal(size=(128, 3)).astype(np.float32),
+                "actions": np.tanh(rng.normal(size=(128, 1)))
+                .astype(np.float32),
+                "rewards": rng.normal(size=128).astype(np.float32),
+                "dones": (rng.random(128) < 0.05).astype(np.float32),
+                "next_obs": rng.normal(size=(128, 3)).astype(np.float32)}
+               for _ in range(8)]
+    sac_noise = [torch.from_numpy(rng.normal(size=(2, 128, 1))
+                                  .astype(np.float32)) for _ in range(8)]
+    rows = [{"obs": (o := rng.normal(size=4).astype(np.float32)).tolist(),
+             "action": int(o[0] > 0)} for _ in range(512)]
+
+    class _Rows:
+        def iter_batches(self, batch_size, batch_format="numpy"):
+            for i in range(0, len(rows), batch_size):
+                chunk = rows[i:i + batch_size]
+                yield {"obs": [r["obs"] for r in chunk],
+                       "action": np.asarray([r["action"] for r in chunk])}
+
+    def ppo_group(dev):
+        return LearnerGroup(learner_config(
+            _ppo_config(dev), [4], {"type": "discrete", "n": 2}), 4, 2)
+
+    def dqn_run(lr_):
+        for mb in q_mbs:
+            mb = dict(mb)
+            w = torch.as_tensor(mb.pop("weights"), device=lr_.device)
+            mb.pop("indices")
+            lr_.update(to_device(mb, lr_.device), w)
+
+    def sac_run(lr_):
+        for mb, noise in zip(sac_mbs, sac_noise):
+            noise = noise.to(lr_.device)
+            lr_.update(to_device(mb, lr_.device),
+                       torch.ones(128, device=lr_.device), noise[0],
+                       noise[1])
+
+    def bc(dev):
+        return BC(BCConfig(dataset=_Rows(), obs_dim=4, action_dim=2,
+                           lr=1e-3, train_batch_size=128, num_epochs=2,
+                           device=dev))
+
+    # (name, learner on a device, one run, minibatch updates per run)
+    cases = [
+        ("PPO LearnerGroup from AlgorithmConfig, update_from_batch "
+         "(6 epochs x 4 minibatches of 128)", ppo_group,
+         lambda g: g.update_from_batch(ppo_batch), 24),
+        ("IMPALA LSTM, 2 fragments of 32 x 8, 4 passes",
+         lambda d: ImpalaLearner({**lstm, "learner_device": d}, 2, 2),
+         lambda l: [l.update_from_trajectory(t) for t in lstm_trajs], 8),
+        ("APPO LSTM, 2 fragments of 32 x 8, 4 passes, target synced",
+         lambda d: AppoLearner({**lstm, "learner_device": d,
+                                "target_update_freq": 1}, 2, 2),
+         lambda l: [l.update_from_trajectory(t) for t in lstm_trajs], 8),
+        ("IMPALA conv 8x8x1, 2 fragments of 32 x 8, 2 passes",
+         lambda d: ImpalaLearner({**conv, "learner_device": d}, 64, 4),
+         lambda l: [l.update_from_trajectory(t) for t in conv_trajs], 4),
+        ("APPO conv 8x8x1, 2 fragments of 32 x 8, 2 passes, target synced",
+         lambda d: AppoLearner({**conv, "learner_device": d,
+                                "target_update_freq": 1}, 64, 4),
+         lambda l: [l.update_from_trajectory(t) for t in conv_trajs], 4),
+        ("DQN, 8 prioritized minibatches of 128",
+         lambda d: DQNLearner(_rl_cfg(lr=1e-3, learner_device=d), 4, 2),
+         dqn_run, 8),
+        ("SAC, 8 minibatches of 128, noise given",
+         lambda d: SACLearner(_rl_cfg(learner_device=d), 3, 1), sac_run, 8),
+        ("BC train(), 512 rows in batches of 128, 2 epochs", bc,
+         lambda l: l.train(), 8),
+    ]
+    group = None
+    for name, make, run, n_updates in cases:
+        cpu, dev = make("cpu"), make(device)
+        _rl_copy(cpu, dev)
+        _, cpu_ms = _timed_ms(lambda: run(cpu), "cpu")
+        _, first_ms = _timed_ms(lambda: run(dev), device)
+        want, got = _rl_weights(cpu), _rl_weights(dev)
+        assert set(want) == set(got), name
+        diff = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+        _, ms = _timed_ms(lambda: run(dev), device)
+        flops = count_flops(lambda: run(dev))[1]
+        share = (f", {flops / (ms / 1e3) / H100_FP32_FLOPS:.2e} of the fp32 "
+                 f"peak (67 TFLOP/s)" if device == "cuda" else "")
+        print(f"rl (b) {name}: max |weight, {device} - cpu| {diff:.3e} "
+              f"(bound {RL_WEIGHT_TOL:g}); first call {first_ms:.2f} ms on "
+              f"{device}, {cpu_ms:.2f} ms on the CPU; warm {ms:.2f} ms a "
+              f"run, {ms / n_updates:.3f} ms per minibatch update "
+              f"({n_updates} a run), {flops:.0f} FLOPs a run{share} "
+              f"[{card}]", flush=True)
+        if not diff <= RL_WEIGHT_TOL:
+            fail(f"rl (b) {name}: the {device} update differs from the "
+                 f"CPU's by {diff:.3e} > {RL_WEIGHT_TOL}")
+        if make is ppo_group:
+            group = dev
+    _, busy, ms = _profiled(lambda: group.update_from_batch(ppo_batch),
+                            device)
+    traced = ("not measured (no card)" if busy is None else
+              f"{busy:.2f} ms = {100 * busy / ms:.1f}% of the traced run's "
+              f"{ms:.2f} ms")
+    print(f"rl (b) PPO LearnerGroup traced: device busy {traced}; "
+          f"runtime_rl_update_mfu {group.local.profiler.last.get('mfu')} "
+          f"(its last minibatch, against "
+          f"{group.local.profiler.peak_flops / 1e12:g} TFLOP/s) [{card}]",
+          flush=True)
+
+
+def rl_end_to_end(card, device):
+    """Phase 19 (c): PPO on CartPole-v1 to the JAX package's gate, then
+    one APPO (LSTM) and one SAC iteration. One line per iteration; one
+    PPO iteration and the other two are traced for the device's busy
+    share."""
+    from ray_tpu_torch.rl import APPO, SAC, AlgorithmConfig
+    t0 = time.perf_counter()
+    algo = _ppo_config(device).build()
+    cfg = algo.config
+    print(f"rl (c) PPO built (2 runner actors, learner on {device}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    learner = algo.learner_group.local
+    reached = None
+    best = float("-inf")
+    try:
+        for it in range(1, RL_GATE_ITERS + 1):
+            r, busy, _ = (_profiled(algo.train, device) if it == 2
+                          else (algo.train(), None, None))
+            ret = r["episode_return_mean"]
+            if ret is not None:
+                best = max(best, ret)
+            n_mb = cfg.num_epochs * -(-r["num_env_steps_sampled"]
+                                      // cfg.minibatch_size)
+            learn_ms = r["learn_time_s"] * 1e3
+            traced = ("" if busy is None else
+                      f", device busy {busy:.2f} ms = "
+                      f"{100 * busy / learn_ms:.1f}% of the learn time "
+                      f"(traced)")
+            print(f"rl (c) PPO it {it}: return {ret}, sample "
+                  f"{r['sample_time_s'] * 1e3:.2f} ms, learn "
+                  f"{learn_ms:.2f} ms ({n_mb} minibatches, "
+                  f"{learn_ms / n_mb:.3f} ms each), env steps/s "
+                  f"{r['env_steps_per_s']:.1f}, runtime_rl_update_mfu "
+                  f"{learner.profiler.last.get('mfu')}{traced}", flush=True)
+            if ret is not None and ret >= RL_GATE_RETURN:
+                reached = it
+                break
+    finally:
+        algo.stop()
+    outcome = (f"reached {RL_GATE_RETURN} at iteration {reached}"
+               if reached else f"did not reach {RL_GATE_RETURN}")
+    print(f"rl (c) PPO CartPole-v1: best episode_return_mean {best}, "
+          f"{outcome} (the JAX package's gate: within {RL_GATE_ITERS} "
+          f"iterations); FLOPs per minibatch update "
+          f"{learner.profiler.flops:.0f} [{card}]", flush=True)
+    if reached is None:
+        fail(f"rl (c): PPO on CartPole-v1 did not reach {RL_GATE_RETURN} "
+             f"within {RL_GATE_ITERS} iterations (best {best})")
+
+    appo = (AlgorithmConfig().environment("ray_tpu_torch/RepeatAfterMe-v0")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=8,
+                         rollout_fragment_length=32)
+            .training(lr=2e-3, entropy_coeff=0.003, clip_param=0.3,
+                      num_epochs=4, hidden_sizes=(64,), use_lstm=True,
+                      target_update_freq=2, gamma=0.9)
+            .learners(device=device))
+    sac = (AlgorithmConfig().environment("Pendulum-v1")
+           .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                        rollout_fragment_length=64)
+           .training(minibatch_size=128, lr=3e-4, gamma=0.99, tau=0.005,
+                     updates_per_step=1.0)
+           .learners(device=device))
+    # sampling overlaps learning in both, so the busy share is of the
+    # whole iteration
+    for name, cls, cfg in (("APPO LSTM RepeatAfterMe", APPO, appo),
+                           ("SAC Pendulum", SAC, sac)):
+        algo = cls(cfg)
+        try:
+            r, busy, wall = _profiled(algo.train, device)
+        finally:
+            algo.stop()
+        traced = ("not measured (no card)" if busy is None else
+                  f"{busy:.2f} ms = {100 * busy / wall:.1f}%")
+        print(f"rl (c) {name} it 1: return {r['episode_return_mean']}, "
+              f"iteration {wall:.2f} ms (traced), env steps/s "
+              f"{r['env_steps_per_s']:.1f}, device busy {traced} [{card}]",
+              flush=True)
+
+
+def run_rl(ops, card, device="cuda"):
+    """Phase 19: RL on the card. Returns the flash launches counted while
+    (b) and (c) drove the learners (none expected)."""
+    t_phase = time.perf_counter()
+    version = _gym_version()
+    print(f"rl (a): gymnasium {version or 'is not installed: (c) is left out'}"
+          f"; card: {card}", flush=True)
+    if device == "cuda":
+        torch.ones(8, 8, device=device) @ torch.ones(8, 8, device=device)
+    zero_counts(ops)                   # main path: the learners' updates
+    rl_learner_holds(card, device)
+    counts = read_counts(ops)
+    print(f"rl (b): flash launches {counts}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if version is None:
+        print("rl (c) did not run: gymnasium is not installed on this "
+              "machine, and the env runners step gymnasium envs",
+              flush=True)
+    else:
+        import ray_tpu_torch as rt
+        t_part = time.perf_counter()
+        rt.init(object_store_memory=2 * 2 ** 30)
+        session = rt._context.node.session_name
+        zero_counts(ops)               # main path: PPO, APPO, SAC
+        try:
+            rl_end_to_end(card, device)
+            end_to_end = read_counts(ops)
+            heartbeat_gap(rt, "rl")
+        finally:
+            rt.shutdown()
+        left, shm = session_left(session)
+        if left or shm:
+            fail(f"rl left processes {left} or shared-memory files {shm} "
+                 f"behind")
+        print(f"rl (c): flash launches {end_to_end}; "
+              f"{time.perf_counter() - t_part:.1f} s", flush=True)
+        counts = {k: counts[k] + end_to_end[k] for k in KERNELS}
+    print(f"rl: flash launches {counts}; phase 19 "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    if any(counts.values()):
+        fail("rl: the RL path launched a flash kernel")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
@@ -4021,6 +4437,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     sharded_counts = run_sharded_serve(models, inference, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rl_counts = run_rl(ops, card)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)
@@ -4035,6 +4454,7 @@ def main():
         records[name]["serve_launches"] = serve_counts[name]
         records[name]["train_worker_launches"] = executor_counts[name]
         records[name]["sharded_serve_launches"] = sharded_counts[name]
+        records[name]["rl_launches"] = rl_counts[name]
     records["flash_fwd"]["launches"] += (gen_launches + eng_launches
                                          + moe_serve_launches)
     for name in KERNELS:

@@ -47,7 +47,7 @@ MODEL_REGISTRY = {
 
 from ray_tpu_torch.models.convert import (  # noqa: E402
     block_params_from_jax, init_params, jax_leaf_groups, params_from_jax,
-    stage_state_dict)
+    rl_params_from_jax, stage_state_dict)
 from ray_tpu_torch.models.generate import make_generate_fn  # noqa: E402
 from ray_tpu_torch.models.sampling import (sample_logits,  # noqa: E402
                                            sample_logits_dynamic)
@@ -55,5 +55,5 @@ from ray_tpu_torch.models.sampling import (sample_logits,  # noqa: E402
 __all__ = ["BlockStage", "TransformerConfig", "TransformerLM",
            "MODEL_REGISTRY", "block_params_from_jax", "count_params",
            "init_cache", "init_params", "jax_leaf_groups", "make_generate_fn",
-           "params_from_jax", "sample_logits", "sample_logits_dynamic",
-           "stage_state_dict"]
+           "params_from_jax", "rl_params_from_jax", "sample_logits",
+           "sample_logits_dynamic", "stage_state_dict"]

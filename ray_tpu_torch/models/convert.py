@@ -9,6 +9,10 @@ to this package's ``state_dict``; a gradient tree of the same structure
 maps the same way, onto the parameters' names. ``init_params`` makes
 random weights with the JAX model's initialisers, from a
 ``torch.Generator``, on the device where they will be used.
+``rl_params_from_jax`` maps the flax params of the RL package's small
+nets (the policy/value MLPs, the conv net, the LSTMs, DQN's Q net, SAC's
+policy and twin Q) onto the ``state_dict`` of the port's nets of the same
+names (``ray_tpu_torch.rl``).
 """
 
 from __future__ import annotations
@@ -197,4 +201,93 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     sd["final_norm.scale"] = torch.ones(E, dtype=torch.float32, device=dev)
     if not cfg.tie_embeddings:
         sd["unembed"] = normal02((E, cfg.vocab_size))
+    return sd
+
+
+# ------------------------------------------------------------ RL networks
+
+def _dense_sd(prefix: str, leaf) -> Dict[str, torch.Tensor]:
+    """A flax Dense ({kernel [in, out], bias}) as an ``nn.Linear``'s
+    weight [out, in] and bias."""
+    return {f"{prefix}.weight": torch.from_numpy(
+                np.array(np.asarray(leaf["kernel"]).T, order="C")),
+            f"{prefix}.bias": torch.from_numpy(np.array(leaf["bias"]))}
+
+
+def _n_dense(tree) -> int:
+    return sum(1 for k in tree if k.startswith("Dense_"))
+
+
+def _lstm_sd(prefix: str, cell) -> Dict[str, torch.Tensor]:
+    """flax OptimizedLSTMCell -> ``nn.LSTMCell``: torch packs the gates
+    [i, f, g, o] in its rows; flax's input kernels (ii, if, ig, io) carry
+    no bias and its hidden kernels (hi, hf, hg, ho) carry the only one, so
+    ``bias_ih`` is 0 and ``bias_hh`` is flax's."""
+    gates = ("i", "f", "g", "o")
+
+    def rows(kind):
+        return np.concatenate([np.asarray(cell[kind + g]["kernel"]).T
+                               for g in gates])
+
+    bias = np.concatenate([np.asarray(cell["h" + g]["bias"]) for g in gates])
+    return {f"{prefix}.weight_ih": torch.from_numpy(rows("i")),
+            f"{prefix}.weight_hh": torch.from_numpy(rows("h")),
+            f"{prefix}.bias_ih": torch.zeros(bias.shape, dtype=torch.float32),
+            f"{prefix}.bias_hh": torch.from_numpy(bias)}
+
+
+def _stack(prefix: str, tree, first: int, n: int) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for i in range(n):
+        sd.update(_dense_sd(f"{prefix}.{i}", tree[f"Dense_{first + i}"]))
+    return sd
+
+
+def rl_params_from_jax(kind: str, tree) -> Dict[str, torch.Tensor]:
+    """A flax RL net's params (numpy leaves; with or without the outer
+    ``{"params": ...}``) -> the ``state_dict`` of the port's net of the
+    same name (``ray_tpu_torch.rl``): ``kind`` is the net's class name.
+    flax names its layers Dense_0..Dense_n in call order, so the policy
+    trunk comes before the value trunk, and TwinQ's two heads share one
+    numbering. A gradient tree of the same structure maps the same way."""
+    tree = tree.get("params", tree)
+    n = _n_dense(tree)
+    sd: Dict[str, torch.Tensor] = {}
+    if kind in ("PolicyValueNet", "GaussianPolicyValueNet"):
+        k = (n - 2) // 2
+        sd.update(_stack("pi", tree, 0, k))
+        sd.update(_dense_sd("pi_out", tree[f"Dense_{k}"]))
+        sd.update(_stack("vf", tree, k + 1, k))
+        sd.update(_dense_sd("vf_out", tree[f"Dense_{2 * k + 1}"]))
+    elif kind == "ConvPolicyValueNet":
+        for i, name in enumerate(("conv1", "conv2")):
+            conv = tree[f"Conv_{i}"]
+            # [kh, kw, in, out] -> [out, in, kh, kw]
+            sd[f"{name}.weight"] = torch.from_numpy(np.array(
+                np.asarray(conv["kernel"]).transpose(3, 2, 0, 1), order="C"))
+            sd[f"{name}.bias"] = torch.from_numpy(np.array(conv["bias"]))
+        sd.update(_stack("hidden", tree, 0, n - 2))
+        sd.update(_dense_sd("pi_out", tree[f"Dense_{n - 2}"]))
+        sd.update(_dense_sd("vf_out", tree[f"Dense_{n - 1}"]))
+    elif kind in ("LSTMPolicyValueNet", "LSTMGaussianPolicyValueNet"):
+        sd.update(_dense_sd("embed", tree["Dense_0"]))
+        sd.update(_lstm_sd("cell", tree["OptimizedLSTMCell_0"]))
+        sd.update(_dense_sd("pi_out", tree["Dense_1"]))
+        sd.update(_dense_sd("vf_out", tree["Dense_2"]))
+    elif kind == "QNet":
+        sd.update(_stack("hidden", tree, 0, n - 1))
+        sd.update(_dense_sd("out", tree[f"Dense_{n - 1}"]))
+    elif kind == "Policy":
+        sd.update(_stack("hidden", tree, 0, n - 2))
+        sd.update(_dense_sd("mean", tree[f"Dense_{n - 2}"]))
+        sd.update(_dense_sd("log_std", tree[f"Dense_{n - 1}"]))
+    elif kind == "TwinQ":
+        k = (n - 2) // 2
+        for q, first in (("q1", 0), ("q2", k + 1)):
+            sd.update(_stack(q, tree, first, k))
+            sd.update(_dense_sd(f"{q}_out", tree[f"Dense_{first + k}"]))
+    else:
+        raise ValueError(f"unknown RL net {kind!r}")
+    if "log_std" in tree:
+        sd["log_std"] = torch.from_numpy(np.array(tree["log_std"]))
     return sd

@@ -55,6 +55,20 @@ def _device_us(evt):
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
+def kernel_events(prof):
+    """A torch.profiler trace's kernel rows: an operator's row repeats the
+    time of its kernels, and so does a user annotation on the device
+    (Optimizer.step#AdamW.step)."""
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_ms(prof):
+    """The device's kernel time in a torch.profiler trace, ms."""
+    return sum(_device_us(e) for e in kernel_events(prof)) / 1e3
+
+
 # kernel families by name: the port's kernels, cuBLAS GEMMs, the
 # multi-tensor kernels of the optimizer and the gradient norm, the sort
 # and cumulative sum of an expert layer's routing, and the copies between
@@ -87,22 +101,18 @@ def report(title, prof, wall_ms, top=12):
     """Device time by kernel (the ``top`` rows, then every other row of the
     port's own kernels), by kernel family, and the device's busy share of
     ``wall_ms``."""
-    # kernels only: an operator's row repeats the time of its kernels, and
-    # so does a user annotation on the device (Optimizer.step#AdamW.step)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-              and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    events = kernel_events(prof)
+    busy = sum(_device_us(e) for e in events) / 1e3
     print(f"{title}: traced wall {wall_ms:.2f} ms, device busy "
-          f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
-          f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+          f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy / wall_ms):.1f}%")
     family_ms = dict.fromkeys([f for f, _ in FAMILIES] + ["other"], 0.0)
     for e in events:
         family = next((f for f, keys in FAMILIES
                        if any(k in e.key for k in keys)), "other")
         family_ms[family] += _device_us(e) / 1e3
     print("  by family: " + ", ".join(
-        f"{f} {ms:.2f} ms ({100 * ms / busy_ms:.1f}%)"
+        f"{f} {ms:.2f} ms ({100 * ms / busy:.1f}%)"
         for f, ms in family_ms.items()))
     rows = sorted(events, key=_device_us, reverse=True)
     ours = FAMILIES[0][1]

@@ -315,3 +315,48 @@ def test_observability_and_train_executor_exist_and_load_no_torch():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# RL (ROADMAP A6): the port's counterpart of every module of ray_tpu/rl
+RL_MODULES = ("ray_tpu_torch.rl", "ray_tpu_torch.rl.actor_manager",
+              "ray_tpu_torch.rl.algorithm", "ray_tpu_torch.rl.appo",
+              "ray_tpu_torch.rl.config", "ray_tpu_torch.rl.connectors",
+              "ray_tpu_torch.rl.dqn", "ray_tpu_torch.rl.env_runner",
+              "ray_tpu_torch.rl.envs", "ray_tpu_torch.rl.external",
+              "ray_tpu_torch.rl.impala", "ray_tpu_torch.rl.learner",
+              "ray_tpu_torch.rl.multi_agent", "ray_tpu_torch.rl.offline",
+              "ray_tpu_torch.rl.replay_buffer", "ray_tpu_torch.rl.rl_module",
+              "ray_tpu_torch.rl.sac", "ray_tpu_torch.rl.vtrace")
+
+
+def test_rl_modules_mirror_jax_and_need_no_jax_or_gymnasium():
+    """Every module of ray_tpu/rl has its namesake in ray_tpu_torch/rl,
+    exporting the same public names; importing them all, in a fresh
+    interpreter where gymnasium cannot be imported, loads no JAX (and no
+    gymnasium: it is imported where an env is built)."""
+    import subprocess
+    import sys
+    jax_mods = {p.stem for p in (ROOT / "ray_tpu/rl").glob("*.py")}
+    port_mods = {p.stem for p in (ROOT / "ray_tpu_torch/rl").glob("*.py")}
+    assert jax_mods == port_mods == {m.rsplit(".", 1)[-1] if m.count(".") > 1
+                                     else "__init__" for m in RL_MODULES}
+    jax_all = [n.id if isinstance(n, ast.Name) else n.value
+               for node in ast.walk(ast.parse(
+                   (ROOT / "ray_tpu/rl/__init__.py").read_text()))
+               if isinstance(node, ast.Assign)
+               and node.targets[0].id == "__all__"
+               for n in node.value.elts]
+    code = ("import importlib, sys\n"
+            "sys.modules['gymnasium'] = None\n"
+            f"for m in {RL_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import ray_tpu_torch.rl as rl\n"
+            f"assert sorted(rl.__all__) == {sorted(jax_all)!r}, rl.__all__\n"
+            "assert all(getattr(rl, n) for n in rl.__all__)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r} or (m.startswith('gymnasium') and "
+            f"sys.modules[m] is not None)]\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -347,3 +347,80 @@ def test_mesh_engine_equals_engine_on_card():
         assert ops.flash_attention_fwd.launches == before
     assert [len(t) for t in out["mesh"]] == [12, 12, 12, 9]
     assert out["mesh"] == out["no mesh"]
+
+
+# RL learners: the update on the card equals the same update on the CPU
+# from the same weights and batch, fp32 with TF32 off. Weights to 1e-4
+# (chip_smoke.py's RL_WEIGHT_TOL: the two devices sum in another order,
+# and an Adam step where a gradient sits at that rounding level moves by
+# a share of the learning rate)
+RL_CFG = dict(obs_shape=[4], action_spec={"type": "discrete", "n": 2},
+              hidden_sizes=(64, 64), lr=3e-4, grad_clip=0.5, clip_param=0.2,
+              vf_loss_coeff=0.5, entropy_coeff=0.01, minibatch_size=128,
+              num_epochs=6, seed=0, gamma=0.99, lambda_=0.95, tau=0.005,
+              initial_alpha=0.2, target_entropy=None)
+
+
+def _max_state_diff(a, b):
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in a)
+
+
+@pytest.mark.cuda
+def test_ppo_learner_update_on_card_equals_cpu():
+    """PPO's whole update_from_batch (6 epochs x 4 minibatches of 128, the
+    CartPole net) on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from ray_tpu_torch.rl.learner import TorchLearner
+    rng = np.random.default_rng(0)
+    n = 512
+    batch = {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, n).astype(np.int64),
+             "logp": (np.log(0.5) + 0.3 * rng.normal(size=n))
+             .astype(np.float32),
+             "advantages": rng.normal(size=n).astype(np.float32),
+             "value_targets": rng.normal(size=n).astype(np.float32)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        learner = TorchLearner({**RL_CFG, "learner_device": dev}, 4, 2)
+        assert next(learner.module.net.parameters()).device.type == dev
+        m = learner.update_from_batch(batch)
+        assert m["num_minibatch_updates"] == 24
+        out[dev] = (learner.module.net.state_dict(), m["total_loss"])
+    assert _max_state_diff(out["cpu"][0], out["cuda"][0]) <= 1e-4
+    assert abs(out["cpu"][1] - out["cuda"][1]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_sac_learner_update_on_card_equals_cpu():
+    """4 SAC steps (critics, actor on the updated critics, alpha, polyak)
+    with the same normal draws given to both devices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from ray_tpu_torch.rl.sac import SACLearner
+    rng = np.random.default_rng(1)
+    mbs = [{"obs": rng.normal(size=(128, 3)).astype(np.float32),
+            "actions": np.tanh(rng.normal(size=(128, 1))).astype(np.float32),
+            "rewards": rng.normal(size=128).astype(np.float32),
+            "dones": (rng.random(128) < 0.05).astype(np.float32),
+            "next_obs": rng.normal(size=(128, 3)).astype(np.float32)}
+           for _ in range(4)]
+    noise = [torch.from_numpy(rng.normal(size=(2, 128, 1))
+                              .astype(np.float32)) for _ in range(4)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        learner = SACLearner({**RL_CFG, "learner_device": dev}, 3, 1)
+        for mb, z in zip(mbs, noise):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in mb.items()}
+            z = z.to(dev)
+            learner.update(batch, torch.ones(128, device=dev), z[0], z[1])
+        out[dev] = {**{f"pi.{k}": v for k, v in
+                       learner.pi.state_dict().items()},
+                    **{f"q.{k}": v for k, v in
+                       learner.q.state_dict().items()},
+                    **{f"t.{k}": v for k, v in
+                       learner.q_target.state_dict().items()},
+                    "log_alpha": learner.log_alpha.detach()}
+    assert _max_state_diff(out["cpu"], out["cuda"]) <= 1e-4
