@@ -156,11 +156,13 @@ Phases, each of which must pass (any failure exits non-zero):
     the trainer provisions a new actor, restores it and replays, to (c)'s
     bits. After shutdown no ray_tpu_torch process and no
     /dev/shm/raytpu_torch_* file may remain.
-15. A JSON line of the kernels (with each one's TFLOP/s, its share of the
-    bound, whether it runs on the tensor cores and its launches on the
-    mesh's, the pipeline's, the actors', Serve's, the train worker's and
-    sharded serving's paths), the card line again, and last the result.
-    It is printed after phase 18.
+15. Each phase's wall time and the smoke's total, a JSON line of the
+    kernels (with each one's TFLOP/s, its share of the bound, whether it
+    runs on the tensor cores and its launches on the mesh's, the
+    pipeline's, the actors', Serve's, the train worker's, sharded
+    serving's, RL's, the compiled DAG's, the client's and Tune's paths),
+    the card line again, and last the result. It is printed after phase
+    20; each phase also prints its own wall time when it ends.
 16. Serve on the card (ray_tpu_torch.serve, on a fresh runtime with a
     64 GiB store: every part's weights fit at once). (a)
     serve.start(http_port=0) and serve.run of an
@@ -217,8 +219,9 @@ Phases, each of which must pass (any failure exits non-zero):
 18. Sharded serving on the card (ray_tpu_torch.serve.sharded, on a fresh
     runtime), printed after phase 17 and before the kernels line. (a)
     serve.start(http_port=0, grpc_port=0 where grpcio imports) and
-    serve.run(build_sharded_app("tpu-7b", num_hosts=1, ...)) at full width
-    and depth (phase 4's engine, phase 3's seeded init through params_fn
+    serve.run(build_sharded_app(<tpu-7b's config>, num_hosts=1, ...)) at
+    full width, cut to 16 of its 32 layers (which leaves the smoke room
+    for phase 20; phase 4's engine, phase 3's seeded init through params_fn
     on the replica's card) on a num_gpus=1 replica whose engine runs in
     lockstep over a one-card DTensor mesh (a world of one rank, NCCL):
     the replica's GPU ids must equal its mask "0", its world and mesh must
@@ -263,22 +266,65 @@ Phases, each of which must pass (any failure exits non-zero):
     0/0/0); after shutdown() no process or arena of the session may
     remain; the phase's wall time is printed. Without gymnasium (c) is
     left out and the smoke says so.
+20. The compiled DAG, client mode and Tune on the card (ray_tpu_torch.dag,
+    .client, .tune), printed after phase 19 and before the kernels line.
+    (a) On a fresh runtime, two stage actors at num_gpus 0.5 started
+    together, holding an 8-block cut of tpu-3b at full width (phase 13's
+    bf16 weights and seed): stage 0 the embedding and blocks 0-3, stage 1
+    blocks 4-7, the final norm and the head on the last position (fp32
+    logits). InputNode -> s0.forward.bind -> s1.forward.bind, compiled
+    with a 16 MiB buffer (the pickled B=2, L=1024 bf16 activations are 12
+    MiB); 10 executes on seeded token batches, each output bit for bit
+    the driver's in-process forward of the same stages; each execute's
+    time (median and spread), each hop (pickle, channel write and read,
+    unpickle) against each stage's compute, what crosses each edge (a
+    host int64 batch, a CUDA bf16 activation, CUDA fp32 logits) and its
+    pickled size; the same chain through .remote(); a one-actor Echo DAG's
+    round trip on a small int against .remote(). The B1 launches counted
+    in the actors must be 8 per execute; teardown must see each actor loop
+    return "closed" and leave no channel file. (b) With (a)'s runtime shut
+    down, a host subprocess starts the port's runtime with the card and
+    serve_proxy(), which must listen on 127.0.0.1; this process connects
+    with init("ray://...") and holds no runtime; through the proxy a num_gpus=1 actor (mask "0") builds the
+    same cut, and its forward of (a)'s first batch must equal (a)'s output
+    bit for bit (8 B1 launches); a 64 MiB numpy array is put and got back
+    bitwise equal (MB/s printed); the host then shuts down, and no process
+    or /dev/shm file of its session may remain. (c) On a fresh runtime, a
+    Tuner over 4 trials (lr a grid of 4, resources_per_trial {"CPU": 1,
+    "GPU": 0.25}, max_concurrent_trials 4) under ASHA (loss, min, max_t 4,
+    grace_period 1, reduction_factor 2); each trial takes phase 6's
+    fp32-AdamW step on a 2-block cut of tpu-3b at full width at B=2,
+    L=1024 and reports its loss every step: every trial's mask must be
+    "0", ASHA's decisions must equal the same scheduler replayed in this
+    process on the reported results, and the best trial's losses must
+    equal, bit for bit, its configuration's steps run in this process;
+    each trial's steps, step times and peak memory, ASHA's first STOP
+    beside the step whose poll brought it (the tuner kills the trial's
+    actor there, unless its steps were all done by then), the fit's
+    wall time and the trials' B1/B2/B3 launches (2/2/2 a step) are
+    printed. (d) The versions of pyarrow and pandas, or that they are not
+    installed.
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
 Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
-9, 10, 12, each part of 13, 16 (b), 18 (b), 19 (c)) and read just after it; phase 14's stage
-actors and phase 17's train workers are fresh processes whose counts
-start at 0, and the trainer (the loop) sums what each reports per step; launches made to compare or time a
+9, 10, 12, each part of 13, 16 (b), 18 (b), 19 (c)) and read just after
+it; phase 14's stage actors, phase 17's train workers and phase 20's
+actors and trials are fresh processes whose counts start at 0 (phase 20
+(a) zeroes its stages' counts again just before it compiles the DAG, and
+a trial counts each step's launches itself), and the trainer (the loop)
+sums what each reports per step; launches made to compare or time a
 kernel (2, 5, the remat checks of 7 and 10, 11, phase 12's no-mesh
 generator and its dispatch check) do not count. Phase 12's no-mesh
 trainers are the steps its mesh steps are held to, and count; so do phase
 13 (d)'s blocks run one after another.
 """
 
+import contextlib
 import dataclasses
 import functools
 import gc
+import glob
 import json
 import os
 import shutil
@@ -2734,6 +2780,10 @@ def run_runtime(models, parallel, train, ops, card, in_process):
 
 # ------------------------------------------------------------- phase 16
 
+# phase 18 serves tpu-7b at full width cut to 16 of its 32 layers, which
+# leaves the whole smoke room for phase 20
+SERVE_LAYERS = 16
+
 def _serve_classes(inference):
     """LLMDeployment and the disaggregated decode tier with what phase 16
     reads from inside a replica: its GPU ids and mask, its construction
@@ -2989,7 +3039,8 @@ def serve_start_and_requests(rt, serve, models, inference, ops, card, cls,
                                      "max_new_tokens": 1}, first, 0)
     first_s = time.perf_counter() - t0
     w = info["weights"]
-    print(f"serve (a): proxy up at {addr} in {start_s:.2f} s; replica pid "
+    print(f"serve (a): {cfg.n_layers} layers at full width; proxy up at "
+          f"{addr} in {start_s:.2f} s; replica pid "
           f"{info['pid']} GPU ids {info['ids']} mask {info['mask']!r} on "
           f"{info['device']}; replica ready {ready_s:.2f} s after serve.run "
           f"(its worker's start, imports and CUDA context, then the "
@@ -3755,7 +3806,7 @@ def _grpc_version():
     return grpc.__version__
 
 
-def sharded_serve(rt, serve, models, card, cls, marks, device, name, engine,
+def sharded_serve(rt, serve, models, card, cls, marks, device, cfg, engine,
                   prompts, new, use_grpc):
     """Phase 18 (a) and (c): build_sharded_app at num_hosts=1 on a
     num_gpus=1 replica, phase 4's requests over HTTP and over a handle,
@@ -3763,11 +3814,10 @@ def sharded_serve(rt, serve, models, card, cls, marks, device, name, engine,
     equal a handle generate's. Returns the one-shot model for (b)."""
     from ray_tpu_torch.serve.deployment import Application, Deployment
     from ray_tpu_torch.serve.sharded import build_sharded_app
-    cfg = models.MODEL_REGISTRY[name]
     gpus = {"num_gpus": 1} if device == "cuda" else {}
     serve.start(http_port=0, grpc_port=0 if use_grpc else None)
     (addrs,) = serve.proxies().values()
-    app = build_sharded_app(name, num_hosts=1, name="sharded",
+    app = build_sharded_app(cfg, num_hosts=1, name="sharded",
                             deployment_kwargs={"ray_actor_options": gpus},
                             params_fn=_params_fn(cfg, marks, device),
                             device=device, **engine)
@@ -3781,8 +3831,9 @@ def sharded_serve(rt, serve, models, card, cls, marks, device, name, engine,
     (replica,) = _replicas(handle, 1)
     (info,) = _probe_all(rt, [replica])
     ready_s = time.perf_counter() - t0
-    print(f"sharded serve (a): a num_hosts=1 ShardedEngineReplica of {name} "
-          f"({cfg.n_layers} layers, {cfg.dtype}) ready {ready_s:.2f} s after "
+    print(f"sharded serve (a): a num_hosts=1 ShardedEngineReplica "
+          f"({cfg.n_layers} layers at full width, {cfg.dtype}) ready "
+          f"{ready_s:.2f} s after "
           f"serve.run (construction {info['init_s']:.2f} s); pid "
           f"{info['pid']}, GPU ids {info['ids']} mask {info['mask']!r}, "
           f"mesh {info['mesh']}, world {info['world']} [{card}]",
@@ -3942,7 +3993,8 @@ def run_sharded_serve(models, inference, ops, card, device="cuda",
     version = _grpc_version()
     print(f"sharded serve: grpcio "
           f"{version or 'is not installed: (c) is left out'}", flush=True)
-    cfg = models.MODEL_REGISTRY[name]
+    cfg = dataclasses.replace(models.MODEL_REGISTRY[name],
+                              n_layers=SERVE_LAYERS)
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in lens]
     rt.init(object_store_memory=4 * 2 ** 30)
@@ -3951,7 +4003,7 @@ def run_sharded_serve(models, inference, ops, card, device="cuda",
     try:
         model, replica_launches = sharded_serve(
             rt, serve, models, card, _sharded_class(),
-            os.path.join(marks, "a"), device, name, engine, prompts, new,
+            os.path.join(marks, "a"), device, cfg, engine, prompts, new,
             use_grpc=version is not None)
         heartbeat_gap(rt, "sharded serve")
     finally:
@@ -4355,7 +4407,564 @@ def run_rl(ops, card, device="cuda"):
     return counts
 
 
+# ------------------------------------------------------------- phase 20
+
+# (a)/(b): tpu-3b's recipe blocks (phase 13's bf16 weights and seed) cut
+# to 8 blocks in 2 stages of 4
+DAG_LAYERS, DAG_STAGES = 8, 2
+# the compiled DAG's channel size: it must hold the pickled B=2, L=1024
+# bf16 activations (12 MiB) and the last position's fp32 logits
+DAG_BUFFER = 16 * 2 ** 20
+
+
+class DagStage:
+    """Phase 20 (a) and (b): stage ``index`` of ``n_stages`` of a
+    ``n_layers``-block cut of ``name``'s recipe blocks at full width, made
+    from phase 13's seed on ``device`` (every process makes all the
+    weights and keeps its own). Stage 0 embeds the tokens; the last stage
+    applies the final norm and the head to the last position (fp32
+    logits). forward records, for each call, when it began and when it
+    ended with the card synced (the host's wall clock, which the driver
+    shares), so an execute splits into stage compute and hops."""
+
+    def __init__(self, name, n_layers, index, n_stages, device="cuda"):
+        from ray_tpu_torch import models
+        from ray_tpu_torch.models.transformer import RMSNorm
+        self.device = device
+        cfg = dataclasses.replace(recipe_cfg(models, name), n_layers=n_layers)
+        self.cfg = cfg
+        weights = models.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device,
+            dtype=cfg.param_dtype)
+        per = n_layers // n_stages
+        self.blocks = models.BlockStage(cfg, per, device="meta")
+        self.blocks.load_state_dict(
+            models.stage_state_dict(weights, index * per, per), assign=True)
+        self.embed = weights["embed"] if index == 0 else None
+        self.norm = self.unembed = None
+        if index == n_stages - 1:
+            self.norm = RMSNorm(cfg.d_model, cfg.norm_eps, cfg.dtype,
+                                "meta")
+            self.norm.load_state_dict(
+                {"scale": weights["final_norm.scale"]}, assign=True)
+            self.unembed = weights["unembed"].to(cfg.dtype)
+        del weights
+        self.calls = []
+
+    def forward(self, x):
+        t_in = time.time()
+        with torch.no_grad():
+            if self.embed is not None:
+                x = torch.nn.functional.embedding(
+                    x.to(self.device), self.embed).to(self.cfg.dtype)
+            x = self.blocks(x)
+            if self.norm is not None:
+                x = (self.norm(x)[:, -1] @ self.unembed).float()
+        sync(self.device)
+        self.calls.append((t_in, time.time()))
+        return x
+
+    def mask(self):
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def counts(self):
+        from ray_tpu_torch.ops import attention as ops
+        return read_counts(ops)
+
+    def zero(self):
+        from ray_tpu_torch.ops import attention as ops
+        zero_counts(ops)
+        self.calls = []
+
+    def timings(self):
+        return self.calls
+
+
+class DagModel:
+    """Phase 20 (b): the whole cut in one actor (both of (a)'s stages, one
+    after the other), its logits returned on the host."""
+
+    def __init__(self, name, n_layers, n_stages, device="cuda"):
+        self.stages = [DagStage(name, n_layers, i, n_stages, device)
+                       for i in range(n_stages)]
+
+    def forward(self, tokens):
+        for s in self.stages:
+            tokens = s.forward(tokens)
+        return tokens.cpu()
+
+    def mask(self):
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def counts(self):
+        return self.stages[0].counts()
+
+
+class _Echo:
+    def ping(self, x):
+        return x
+
+
+def _dag_tokens(vocab, B, L, n, device):
+    g = torch.Generator(device=device).manual_seed(200)
+    return [torch.randint(0, vocab, (B, L), device=device, generator=g)
+            .cpu() for _ in range(n)]
+
+
+def _pickled_bytes(x):
+    import pickle
+    return len(pickle.dumps(x, protocol=5))
+
+
+def _ms_spread(seconds):
+    med, lo, hi = median_spread([s * 1e3 for s in seconds])
+    return f"{med:.2f} ms [{lo:.2f}, {hi:.2f}]"
+
+
+def dag_pipeline(rt, ops, card, device, name, n_layers, B, L, n_exec):
+    """Phase 20 (a). Returns the driver's outputs (the reference of (b))
+    and the flash launches counted in the stage actors."""
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.experimental.channel import CHANNEL_PREFIX
+    t_part = time.perf_counter()
+    gpu = 1.0 / DAG_STAGES if device == "cuda" else 0
+    stage_cls = rt.remote(num_gpus=gpu)(DagStage)
+    stages = [stage_cls.remote(name, n_layers, i, DAG_STAGES, device)
+              for i in range(DAG_STAGES)]
+    masks = rt.get([s.mask.remote() for s in stages], timeout=600)
+    start_s = time.perf_counter() - t_part
+    local = [DagStage(name, n_layers, i, DAG_STAGES, device)
+             for i in range(DAG_STAGES)]
+    cfg = local[0].cfg
+    batches = _dag_tokens(cfg.vocab_size, B, L, n_exec, device)
+    want = []
+    for tokens in batches:
+        x = tokens
+        for s in local:
+            x = s.forward(x)
+        want.append(x)
+    names = ["driver -> stage 0"] + [
+        f"stage {i} -> " + ("driver" if i == DAG_STAGES - 1
+                            else f"stage {i + 1}")
+        for i in range(DAG_STAGES)]
+    edges, x = [(names[0], batches[0])], batches[0]
+    for i, s in enumerate(local):
+        x = s.forward(x)
+        edges.append((names[i + 1], x))
+    del local
+    release(device)
+    crossing = [(e, f"{t.device.type} {t.dtype} {list(t.shape)}",
+                 _pickled_bytes(t)) for e, t in edges]
+    print(f"dag (a): {DAG_STAGES} stage actors of {name}'s {n_layers}-block "
+          f"cut ({n_layers // DAG_STAGES} blocks each, bf16 weights of "
+          f"phase 13's seed; num_gpus {gpu} each) up in {start_s:.2f} s, "
+          f"masks {masks}; edges (what crosses, pickled bytes) {crossing} "
+          f"[{card}]", flush=True)
+    if device == "cuda" and masks != ["0"] * DAG_STAGES:
+        fail(f"the stage actors' masks are {masks}, want '0' each")
+
+    rt.get([s.zero.remote() for s in stages], timeout=60)
+    with InputNode() as inp:
+        node = inp
+        for s in stages:
+            node = s.forward.bind(node)
+    t0 = time.perf_counter()
+    dag = node.experimental_compile(max_buffer_size=DAG_BUFFER)
+    compile_s = time.perf_counter() - t0
+    got, spans = [], []
+    try:
+        for tokens in batches:      # main path: the compiled DAG
+            t_in = time.time()
+            got.append(dag.execute(tokens, timeout_s=300))
+            spans.append((t_in, time.time()))
+    finally:
+        dag.teardown()
+    loops = rt.get(dag._loop_refs, timeout=60)
+    left = glob.glob(f"{glob.escape(dag.prefix)}*")
+    counts = [rt.get(s.counts.remote(), timeout=60) for s in stages]
+    calls = [rt.get(s.timings.remote(), timeout=60) for s in stages]
+    total = {k: sum(c[k] for c in counts) for k in KERNELS}
+    equal = [torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want)]
+    kinds = {f"{g.device.type} {g.dtype} {list(g.shape)}" for g in got}
+    hops = [[] for _ in range(DAG_STAGES + 1)]
+    compute = [[] for _ in range(DAG_STAGES)]
+    for e, (t_in, t_out) in enumerate(spans):
+        prev = t_in
+        for s in range(DAG_STAGES):
+            c_in, c_out = calls[s][e]
+            hops[s].append(c_in - prev)
+            compute[s].append(c_out - c_in)
+            prev = c_out
+        hops[-1].append(t_out - prev)
+    # the first execute carries the stages' first kernels and the
+    # channels' first touch: printed alone, the rest as median [min, max]
+    wall = [b - a for a, b in spans]
+    print(f"dag (a): compile {compile_s * 1e3:.1f} ms; {n_exec} executes of "
+          f"{B}x{L} tokens, the first {wall[0] * 1e3:.2f} ms, the rest "
+          f"{_ms_spread(wall[1:])} (median [min, max]); outputs {kinds}, "
+          f"bitwise equal to the driver's in-process forward "
+          f"{sum(equal)}/{len(equal)}; B1 launches counted in the actors "
+          f"{counts} (sum {total}, want {n_layers} per execute) [{card}]",
+          flush=True)
+    names = [f"{n} (pickle, write, wake, read, unpickle)" for n in names]
+    for s in range(DAG_STAGES):
+        print(f"dag (a) hop {names[s]}: {_ms_spread(hops[s][1:])}; stage "
+              f"{s} compute {_ms_spread(compute[s][1:])} (executes 2-"
+              f"{n_exec})", flush=True)
+    print(f"dag (a) hop {names[-1]}: {_ms_spread(hops[-1][1:])}; the hops' "
+          f"share of executes 2-{n_exec} "
+          f"{sum(sum(h[1:]) for h in hops) / sum(wall[1:]):.3f} [{card}]",
+          flush=True)
+    print(f"dag (a) teardown: actor loops returned {loops}; channel files "
+          f"left {left}", flush=True)
+    if not all(equal) or len(got) != n_exec:
+        fail("the compiled DAG's outputs differ from the in-process forward")
+    if set(loops) != {"closed"} or left:
+        fail(f"teardown: loops {loops}, channel files left {left}")
+    want_b1 = n_layers * n_exec if device == "cuda" else 0
+    if total != {"flash_fwd": want_b1, "flash_bwd_dq": 0,
+                 "flash_bwd_dkv": 0}:
+        fail(f"the stage actors launched {total}, want {want_b1} B1")
+
+    # the same chain through .remote(), its values through the store
+    chain = []
+    for tokens in batches:
+        t0 = time.perf_counter()
+        ref = tokens
+        for s in stages:
+            ref = s.forward.remote(ref)
+        out = rt.get(ref, timeout=300)
+        chain.append(time.perf_counter() - t0)
+        if not torch.equal(out.cpu(), want[len(chain) - 1].cpu()):
+            fail("the .remote() chain's output differs from the DAG's")
+    print(f"dag (a) the same chain through .remote(): "
+          f"{_ms_spread(chain)} a call vs the DAG's {_ms_spread(wall[1:])}, "
+          f".remote()/DAG {np.median(chain) / np.median(wall[1:]):.3f} "
+          f"[{card}]", flush=True)
+
+    # a one-actor Echo DAG on a small int against .remote()
+    echo = rt.remote(_Echo).remote()
+    with InputNode() as inp:
+        edag = echo.ping.bind(inp).experimental_compile()
+    try:
+        for i in range(5):
+            edag.execute(i)
+        n = 200
+        t0 = time.perf_counter()
+        for i in range(n):
+            if edag.execute(i) != i:
+                fail("the Echo DAG returned another value")
+        dag_us = (time.perf_counter() - t0) / n * 1e6
+    finally:
+        edag.teardown()
+    rt.get(echo.ping.remote(0), timeout=60)
+    t0 = time.perf_counter()
+    for i in range(n):
+        rt.get(echo.ping.remote(i), timeout=60)
+    rpc_us = (time.perf_counter() - t0) / n * 1e6
+    print(f"dag (a) Echo round trip of a small int: compiled DAG "
+          f"{dag_us:.1f} us, .remote() {rpc_us:.1f} us ({n} calls each, "
+          f"{rpc_us / dag_us:.1f}x); part (a) "
+          f"{time.perf_counter() - t_part:.1f} s", flush=True)
+    for s in stages + [echo]:
+        rt.kill(s)
+    return want, total
+
+
+CLIENT_HOST = """
+import sys
+import ray_tpu_torch as rt
+from ray_tpu_torch.client import serve_proxy
+rt.init(object_store_memory=4 * 2 ** 30)
+print("SESSION=" + rt._context.node.session_name, flush=True)
+print("PROXY_ADDR=" + serve_proxy(), flush=True)
+sys.stdin.readline()
+rt.shutdown()
+print("HOST_DONE", flush=True)
+"""
+
+
+def client_session(rt, ops, card, device, name, n_layers, tokens, want):
+    """Phase 20 (b): a host subprocess holds the runtime and the proxy;
+    this process connects with init("ray://...") and holds none. Returns
+    the flash launches counted in the client's actor."""
+    t_part = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.dirname(os.path.abspath(__file__)),
+                    env.get("PYTHONPATH")) if p)
+    host = subprocess.Popen([sys.executable, "-c", CLIENT_HOST],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True, env=env)
+    info = {}
+    while "PROXY_ADDR" not in info:
+        line = host.stdout.readline()
+        if not line:
+            fail(f"the client host exited (rc {host.wait()}) before its "
+                 f"proxy was up")
+        if "=" in line:
+            k, v = line.strip().split("=", 1)
+            info[k] = v
+    up_s = time.perf_counter() - t_part
+    try:
+        if not info["PROXY_ADDR"].startswith("tcp:127.0.0.1:"):
+            fail(f"client (b): the proxy listens on {info['PROXY_ADDR']}, "
+                 f"not on loopback")
+        t0 = time.perf_counter()
+        ctx = rt.init(f"ray://{info['PROXY_ADDR']}")
+        connect_s = time.perf_counter() - t0
+        if rt.is_initialized() or ctx is not rt._client():
+            fail("client mode: this process holds a runtime")
+        t0 = time.perf_counter()
+        gpu = 1 if device == "cuda" else 0
+        model = rt.remote(num_gpus=gpu)(DagModel).remote(
+            name, n_layers, DAG_STAGES, device)
+        mask = rt.get(model.mask.remote(), timeout=600)
+        actor_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = rt.get(model.forward.remote(tokens), timeout=300)
+        forward_s = time.perf_counter() - t0
+        counts = rt.get(model.counts.remote(), timeout=60)
+        equal = torch.equal(out, want.cpu())
+        arr = np.random.default_rng(5).integers(
+            0, 2 ** 63, size=64 * 2 ** 20 // 8, dtype=np.int64)
+        t0 = time.perf_counter()
+        ref = rt.put(arr)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rt.get(ref, timeout=300)
+        get_s = time.perf_counter() - t0
+        mb = arr.nbytes / 2 ** 20
+        same = back.dtype == arr.dtype and np.array_equal(back, arr)
+        rt.kill(model)
+        rt.shutdown()               # client mode: leaves the proxy session
+    finally:
+        try:
+            done, _ = host.communicate("stop\n", timeout=120)
+        except subprocess.TimeoutExpired:
+            host.kill()
+            done, _ = host.communicate()
+        rc = host.returncode
+    left, shm = session_left(info["SESSION"])
+    print(f"client (b): host runtime and proxy at {info['PROXY_ADDR']} up "
+          f"in {up_s:.2f} s, init('ray://...') {connect_s * 1e3:.1f} ms "
+          f"(no local runtime); a num_gpus={gpu} actor through the proxy "
+          f"up in {actor_s:.2f} s, mask {mask!r}; its forward of (a)'s "
+          f"first batch {forward_s * 1e3:.1f} ms, logits "
+          f"{list(out.shape)} {out.dtype} bitwise equal to (a)'s: {equal}; "
+          f"launches in the actor {counts}; a {mb:.0f} MiB int64 array put "
+          f"{mb / put_s:.1f} MB/s ({put_s:.3f} s), get {mb / get_s:.1f} MB/s "
+          f"({get_s:.3f} s), bitwise equal {same} [{card}]", flush=True)
+    print(f"client (b): host exit {rc} ({'HOST_DONE' in done}); after its "
+          f"shutdown the session's processes {left}, /dev/shm files {shm}; "
+          f"part (b) {time.perf_counter() - t_part:.1f} s", flush=True)
+    if device == "cuda" and mask != "0":
+        fail(f"the client's GPU actor has mask {mask!r}, want '0'")
+    if not equal or not same:
+        fail("client mode: the actor's logits or the array came back "
+             "otherwise")
+    want_b1 = n_layers if device == "cuda" else 0
+    if counts != {"flash_fwd": want_b1, "flash_bwd_dq": 0,
+                  "flash_bwd_dkv": 0}:
+        fail(f"the client's actor launched {counts}, want {want_b1} B1")
+    if rc != 0 or left or shm:
+        fail(f"the client host left processes {left} or files {shm} "
+             f"(exit {rc})")
+    return counts
+
+
+def tune_steps(config):
+    """Phase 20 (c)'s trial: phase 6's fp32-AdamW step (no recompute,
+    fp32 master weights) on ``config``'s cut of its model at full width,
+    lr from the config; yields each step's loss, time, peak memory and
+    the step's flash launches. The trial and the driver's reference run
+    this."""
+    from ray_tpu_torch import models, parallel
+    from ray_tpu_torch.ops import attention as ops
+    device = config["device"]
+    cfg = dataclasses.replace(models.MODEL_REGISTRY[config["name"]],
+                              remat=False, n_layers=config["n_layers"])
+    B, L = config["B"], config["L"]
+    _, init_fn, step_fn = train_fns(
+        models, parallel, cfg, device, B, L, config["loss_chunk"],
+        parallel.adamw(config["lr"]))
+    state = init_fn(torch.Generator(device=device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(3))
+    for _ in range(config["steps"]):
+        before = read_counts(ops)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens)
+        loss = metrics["loss"].item()
+        step_s = time.perf_counter() - t0
+        yield {"loss": loss, "step_ms": step_s * 1e3,
+               "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                            if device == "cuda" else 0.0),
+               "launches": {k: n - before[k]
+                            for k, n in read_counts(ops).items()}}
+
+
+def tune_trial(config):
+    """Phase 20 (c): one Tune trial, in its trial actor."""
+    from ray_tpu_torch import tune
+    mask = os.environ.get("CUDA_VISIBLE_DEVICES")
+    for result in tune_steps(config):
+        tune.report(mask=mask, pid=os.getpid(), **result)
+
+
+def tune_trials(rt, card, device, name, n_layers, B, L, loss_chunk):
+    """Phase 20 (c). Returns the flash launches the trials counted."""
+    from ray_tpu_torch import tune
+    t_part = time.perf_counter()
+    lrs = [3e-4, 1e-3, 3e-3, 1e-2]
+    asha = dict(metric="loss", mode="min", max_t=4, grace_period=1,
+                reduction_factor=2)
+    log = []
+
+    class RecordingASHA(tune.ASHAScheduler):
+        def on_result(self, trial_id, result):
+            decision = super().on_result(trial_id, result)
+            log.append((trial_id, dict(result), decision))
+            return decision
+
+    per_trial = {"CPU": 1, "GPU": 0.25} if device == "cuda" else {"CPU": 1}
+    space = {"lr": tune.grid_search(lrs), "device": device, "name": name,
+             "n_layers": n_layers, "B": B, "L": L,
+             "loss_chunk": loss_chunk, "steps": asha["max_t"]}
+    tuner = tune.Tuner(tune_trial, param_space=space,
+                       tune_config=tune.TuneConfig(
+                           scheduler=RecordingASHA(**asha),
+                           max_concurrent_trials=4),
+                       resources_per_trial=per_trial)
+    t0 = time.perf_counter()
+    grid = tuner.fit()
+    fit_s = time.perf_counter() - t0
+    replay = tune.ASHAScheduler(**asha)
+    replayed = [replay.on_result(t, r) for t, r, _ in log]
+    decided = [d for _, _, d in log]
+    total = {k: 0 for k in KERNELS}
+    for r in sorted(grid, key=lambda r: r.trial_id):
+        h = r.history
+        for k in KERNELS:
+            total[k] += sum(x["launches"][k] for x in h)
+        stops = [d for t, _, d in log if t == r.trial_id]
+        # the tuner kills a trial's actor at the poll that brings ASHA's
+        # first STOP, after the steps that poll read: a trial whose steps
+        # were all read by then had ended before the STOP could end it
+        first_stop = next((x["training_iteration"] for t, x, d in log
+                           if t == r.trial_id and d == tune.schedulers.STOP),
+                          None)
+        if first_stop is None:
+            ended = "ran to its end, no STOP"
+        elif len(h) < asha["max_t"]:
+            ended = (f"first STOP at step {first_stop}, its actor killed "
+                     f"at the poll that read step {len(h)} of "
+                     f"{asha['max_t']}")
+        else:
+            ended = (f"first STOP at step {first_stop}, read after all "
+                     f"{len(h)} steps: the trial had ended before it")
+        print(f"tune (c) {r.trial_id}: lr {r.config['lr']:g}, pid "
+              f"{h[0]['pid'] if h else None}, mask "
+              f"{sorted({x['mask'] for x in h})}, {len(h)} steps, losses "
+              f"{[x['loss'] for x in h]}, step "
+              f"{[round(x['step_ms'], 1) for x in h]} ms, peak "
+              f"{max((x['peak_gib'] for x in h), default=0):.2f} GiB, ASHA "
+              f"{stops}: {ended}; error {r.error}", flush=True)
+    best = grid.get_best_result("loss", mode="min")
+    ref_cfg = dict(best.config, steps=len(best.history))
+    ref = [x["loss"] for x in tune_steps(ref_cfg)]
+    got = [x["loss"] for x in best.history]
+    masks = {x["mask"] for r in grid for x in r.history}
+    print(f"tune (c): {len(grid)} trials of {name} at {n_layers} blocks, "
+          f"{B}x{L}, adamw(lr) over lr {lrs}, resources per trial "
+          f"{per_trial}, 4 at once, ASHA {asha}: fit {fit_s:.2f} s; ASHA's "
+          f"{len(log)} decisions replayed in this process equal: "
+          f"{replayed == decided}; the best trial ({best.trial_id}, lr "
+          f"{best.config['lr']:g}) losses {got} vs the same steps in this "
+          f"process {ref} (bitwise {got == ref}); flash launches counted in "
+          f"the trials {total}; part (c) {time.perf_counter() - t_part:.1f} "
+          f"s [{card}]", flush=True)
+    if any(r.error for r in grid) or len(grid) != len(lrs):
+        fail(f"tune: trials failed {[r.error for r in grid]}")
+    if device == "cuda" and masks != {"0"}:
+        fail(f"tune: the trials' masks are {masks}, want '0'")
+    if replayed != decided or got != ref:
+        fail("tune: ASHA's replay or the best trial's losses differ")
+    steps = sum(len(r.history) for r in grid)
+    want = n_layers * steps if device == "cuda" else 0
+    if total != {k: want for k in KERNELS}:
+        fail(f"tune: the trials launched {total}, want {want} of each")
+    return total
+
+
+def _version(module):
+    import importlib
+    try:
+        return importlib.import_module(module).__version__
+    except ImportError:
+        return None
+
+
+def run_dag_client_tune(models, ops, card, device="cuda", name="tpu-3b",
+                        n_layers=DAG_LAYERS, B=2, L=1024, n_exec=10,
+                        tune_layers=2, loss_chunk=256):
+    """Phase 20: the compiled DAG (a), client mode (b), Tune (c) and the
+    probe (d). Returns the flash launches of (a), (b) and (c)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.native.build import build as build_native
+    t_phase = time.perf_counter()
+    lib = build_native("mutable_channel")
+    print(f"dag: the channel library {os.path.basename(lib)} (g++, from "
+          f"ray_tpu_torch/native/mutable_channel.cpp) ready in "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    rt.init(object_store_memory=8 * 2 ** 30)
+    session = rt._context.node.session_name
+    try:
+        want, dag_counts = dag_pipeline(rt, ops, card, device, name,
+                                        n_layers, B, L, n_exec)
+    finally:
+        rt.shutdown()
+    left, shm = session_left(session)
+    if left or shm:
+        fail(f"dag: the runtime left processes {left} or files {shm}")
+    tokens = _dag_tokens(models.MODEL_REGISTRY[name].vocab_size, B, L, 1,
+                         device)[0]
+    client_counts = client_session(rt, ops, card, device, name, n_layers,
+                                   tokens, want[0])
+    rt.init(object_store_memory=8 * 2 ** 30)
+    session = rt._context.node.session_name
+    try:
+        tune_counts = tune_trials(rt, card, device, name, tune_layers, B, L,
+                                  loss_chunk)
+    finally:
+        rt.shutdown()
+    left, shm = session_left(session)
+    if left or shm:
+        fail(f"tune: the runtime left processes {left} or files {shm}")
+    print(f"probe (d): pyarrow {_version('pyarrow') or 'not installed'}, "
+          f"pandas {_version('pandas') or 'not installed'}", flush=True)
+    print(f"phase 20 (dag, client, tune): "
+          f"{time.perf_counter() - t_phase:.1f} s, launches: dag "
+          f"{dag_counts}, client {client_counts}, tune {tune_counts} "
+          f"[{card}]", flush=True)
+    return dag_counts, client_counts, tune_counts
+
+
+PHASE_WALL = {}
+
+
+@contextlib.contextmanager
+def phase(label):
+    """Time one phase of main() on the host's clock and print it."""
+    t0 = time.perf_counter()
+    yield
+    PHASE_WALL[label] = round(time.perf_counter() - t0, 1)
+    print(f"phase {label}: {PHASE_WALL[label]} s of wall time", flush=True)
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA "
              "card")
@@ -4379,67 +4988,80 @@ def main():
         bf16_spans = "ml_dtypes not installed: bf16 spans go out as fp32"
     print(f"kv spans: {bf16_spans}", flush=True)
 
-    t0 = time.perf_counter()
-    built = _build.build(*KERNELS)
-    print(f"kernel build ({len(KERNELS)} sources in parallel): "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, (_, log) in built.items():
-        for line in log.splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill")):
-                print(f"ptxas {name}: {line.strip()}", flush=True)
-    tensor_cores = sass_check(built)
+    with phase("1"):
+        t0 = time.perf_counter()
+        built = _build.build(*KERNELS)
+        print(f"kernel build ({len(KERNELS)} sources in parallel): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for name, (_, log) in built.items():
+            for line in log.splitlines():
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill")):
+                    print(f"ptxas {name}: {line.strip()}", flush=True)
+        tensor_cores = sass_check(built)
 
-    records = {"flash_fwd": check_flash_kernel(ops, tensor_cores)}
-    for record in check_bwd_kernels(ops, tensor_cores):
-        records[record["name"]] = record
-    model, gen_launches = run_generator(models, ops)
-    eng_launches = run_engine(model, models, inference, ops, card)
+    with phase("2"):
+        records = {"flash_fwd": check_flash_kernel(ops, tensor_cores)}
+        for record in check_bwd_kernels(ops, tensor_cores):
+            records[record["name"]] = record
+    with phase("3"):
+        model, gen_launches = run_generator(models, ops)
+    with phase("4"):
+        eng_launches = run_engine(model, models, inference, ops, card)
     del model
-    gc.collect()
-    torch.cuda.empty_cache()
-    run_train_parity(models, parallel, ops)
-    train_counts = run_train(models, parallel, ops, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    run_recipe_parity(models, parallel)
-    recipe_counts, recipe_step_s, recipe_steps = run_recipe(
-        models, parallel, ops, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    feature_counts = run_engine_features(models, inference, ops, card)
-    moe_serve_launches = run_moe_serving(models, inference, ops, card)
-    run_recipe_parity(models, parallel, name="mixtral-8x7b")
-    moe_train_counts, _, _ = run_recipe(models, parallel, ops, card,
-                                        name="mixtral-8x7b", n_layers=4)
-    gc.collect()
-    torch.cuda.empty_cache()
-    run_moe_holds(models, parallel, inference, ops, card)
-    mesh_counts = [
-        run_mesh_train(models, parallel, ops, card),
-        run_mesh_serve(models, parallel, ops, card),
-        run_mesh_train(models, parallel, ops, card, name="mixtral-8x7b",
-                       n_layers=4, steps=2, together=False, fsdp=1,
-                       expert=-1)]
-    pipeline_counts, in_process = run_pipeline(models, parallel, train, ops,
-                                               card, recipe_step_s)
-    gc.collect()
-    torch.cuda.empty_cache()
-    runtime_counts = run_runtime(models, parallel, train, ops, card,
-                                 in_process)
-    gc.collect()
-    torch.cuda.empty_cache()
-    serve_counts = run_serve(models, inference, ops, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    executor_counts = run_train_executor(models, parallel, train, card,
-                                         recipe_steps)
-    gc.collect()
-    torch.cuda.empty_cache()
-    sharded_counts = run_sharded_serve(models, inference, ops, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    rl_counts = run_rl(ops, card)
+    release("cuda")
+    with phase("5"):
+        run_train_parity(models, parallel, ops)
+    with phase("6"):
+        train_counts = run_train(models, parallel, ops, card)
+    release("cuda")
+    with phase("7"):
+        run_recipe_parity(models, parallel)
+        recipe_counts, recipe_step_s, recipe_steps = run_recipe(
+            models, parallel, ops, card)
+    release("cuda")
+    with phase("8"):
+        feature_counts = run_engine_features(models, inference, ops, card)
+    with phase("9"):
+        moe_serve_launches = run_moe_serving(models, inference, ops, card)
+    with phase("10"):
+        run_recipe_parity(models, parallel, name="mixtral-8x7b")
+        moe_train_counts, _, _ = run_recipe(models, parallel, ops, card,
+                                            name="mixtral-8x7b", n_layers=4)
+    release("cuda")
+    with phase("11"):
+        run_moe_holds(models, parallel, inference, ops, card)
+    with phase("12"):
+        mesh_counts = [
+            run_mesh_train(models, parallel, ops, card),
+            run_mesh_serve(models, parallel, ops, card),
+            run_mesh_train(models, parallel, ops, card,
+                           name="mixtral-8x7b", n_layers=4, steps=2,
+                           together=False, fsdp=1, expert=-1)]
+    with phase("13"):
+        pipeline_counts, in_process = run_pipeline(
+            models, parallel, train, ops, card, recipe_step_s)
+    release("cuda")
+    with phase("14"):
+        runtime_counts = run_runtime(models, parallel, train, ops, card,
+                                     in_process)
+    release("cuda")
+    with phase("16"):
+        serve_counts = run_serve(models, inference, ops, card)
+    release("cuda")
+    with phase("17"):
+        executor_counts = run_train_executor(models, parallel, train, card,
+                                             recipe_steps)
+    release("cuda")
+    with phase("18"):
+        sharded_counts = run_sharded_serve(models, inference, ops, card)
+    release("cuda")
+    with phase("19"):
+        rl_counts = run_rl(ops, card)
+    release("cuda")
+    with phase("20"):
+        dag_counts, client_counts, tune_counts = run_dag_client_tune(
+            models, ops, card)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)
@@ -4447,7 +5069,10 @@ def main():
                                      + sum(c[name] for c in mesh_counts)
                                      + pipeline_counts[name]
                                      + runtime_counts[name]
-                                     + executor_counts[name])
+                                     + executor_counts[name]
+                                     + dag_counts[name]
+                                     + client_counts[name]
+                                     + tune_counts[name])
         records[name]["mesh_launches"] = sum(c[name] for c in mesh_counts)
         records[name]["pipeline_launches"] = pipeline_counts[name]
         records[name]["actor_launches"] = runtime_counts[name]
@@ -4455,19 +5080,24 @@ def main():
         records[name]["train_worker_launches"] = executor_counts[name]
         records[name]["sharded_serve_launches"] = sharded_counts[name]
         records[name]["rl_launches"] = rl_counts[name]
+        records[name]["dag_launches"] = dag_counts[name]
+        records[name]["client_launches"] = client_counts[name]
+        records[name]["tune_launches"] = tune_counts[name]
     records["flash_fwd"]["launches"] += (gen_launches + eng_launches
                                          + moe_serve_launches)
     for name in KERNELS:
         if records[name]["launches"] == 0:
             fail(f"the main path never launched {name}")
 
+    print(f"phase wall times (s): {PHASE_WALL}; the smoke's total "
+          f"{time.perf_counter() - t_start:.1f} s since main() began",
+          flush=True)
     print(json.dumps({"kernels": [records[name] for name in KERNELS]}),
           flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-
 
 if __name__ == "__main__":
     main()

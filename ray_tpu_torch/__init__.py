@@ -118,9 +118,7 @@ def init(address: Optional[str] = None, *,
     if address is None:
         address = os.environ.get("RAY_TPU_TORCH_ADDRESS")
     if address is not None and address.startswith("ray://"):
-        raise NotImplementedError(
-            "client mode (ray://) is not ported yet (ROADMAP.md, Queue A "
-            "item A3f)")
+        return _connect_client(address, ignore_reinit_error)
     if _system_config and address is not None:
         raise ValueError(
             "_system_config is only valid when starting a new head; "
@@ -225,6 +223,9 @@ def shutdown():
     with _ctx_lock:
         ctx = _context
         if ctx is None:
+            cc = _client()
+            if cc is not None:      # client mode: drop the proxy session
+                cc.disconnect()
             return
         _context = None
         try:
@@ -258,10 +259,29 @@ def remote(*args, **kwargs):
     return make
 
 
+def _connect_client(address: str, ignore_reinit_error: bool):
+    """init("ray://host:port"): client mode. The process holds no runtime;
+    the public API goes through the cluster's client proxy
+    (``client.serve_proxy``). A process that holds a runtime, or is
+    already a client, cannot become one."""
+    from ray_tpu_torch import client
+    with _ctx_lock:
+        if _context is not None:
+            raise RuntimeError("ray_tpu_torch.init() already called: a "
+                               "process that holds a runtime cannot be a "
+                               "client")
+        cc = client.current_client()
+        if cc is not None:
+            if ignore_reinit_error:
+                return cc
+            raise RuntimeError("ray_tpu_torch.init() already called "
+                               "(use ignore_reinit_error=True)")
+        return client.connect(address)
+
+
 def _client():
-    """Client mode (ray://) is not ported (``init`` refuses it), so every
-    call goes to this process's worker."""
-    return None
+    from ray_tpu_torch.client import current_client
+    return current_client()
 
 
 def get(refs: Union[ObjectRef, Sequence[ObjectRef]],

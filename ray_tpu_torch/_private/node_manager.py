@@ -740,10 +740,19 @@ class NodeManager:
     # local readers mmap. Only refs-to-bytes travel the wire; readers stay
     # zero-copy against their node-local shm.
     def _dag_channel(self, path: str, num_readers: int, max_size: int):
-        raise NotImplementedError(
-            "compiled-DAG channels (experimental/channel, "
-            "native/mutable_channel.cpp) are not ported yet (ROADMAP.md, "
-            "Queue A item A3e)")
+        from ray_tpu_torch.experimental.channel import (Channel,
+                                                        node_local_path)
+        local = node_local_path(path, self.node_id)
+        ch = self._dag_channels.get(local)
+        if ch is None:
+            import os as _os
+            if _os.path.exists(local):
+                ch = Channel(local)
+            else:
+                ch = Channel(local, max_size=max_size,
+                             num_readers=num_readers, create=True)
+            self._dag_channels[local] = ch
+        return ch
 
     async def h_channel_push(self, conn, path: str, payload: bytes,
                              num_readers: int = 1,
@@ -799,10 +808,35 @@ class NodeManager:
                               targets: Optional[List[str]] = None):
         """Close the local mirror (readers see ChannelClosed) and
         propagate to target nodes."""
-        raise NotImplementedError(
-            "compiled-DAG channels (experimental/channel, "
-            "native/mutable_channel.cpp) are not ported yet (ROADMAP.md, "
-            "Queue A item A3e)")
+        from ray_tpu_torch.experimental.channel import (Channel,
+                                                        node_local_path)
+        local = node_local_path(path, self.node_id)
+        ch = self._dag_channels.pop(local, None)
+        if ch is None:
+            import os as _os
+            if _os.path.exists(local):
+                try:
+                    ch = Channel(local)
+                except OSError:
+                    ch = None
+        if ch is not None:
+            try:
+                ch.close()
+                ch.destroy()   # drop the shm-backed file too
+            except Exception:
+                pass
+        for nid in targets or []:
+            view = self.cluster_view.get(nid)
+            if view is None:
+                continue
+            try:
+                nm = await self.pool.get(view["address"])
+                await nm.call("channel_close", path=path)
+            # rtlint: disable=RT004 — close fan-out to peers that may
+            # already be dead; a dead peer's channel needs no close
+            except Exception:
+                pass
+        return True
 
     def h_pubsub(self, conn, channel, key, payload):
         if channel == "NODE":

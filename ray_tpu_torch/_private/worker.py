@@ -2821,9 +2821,10 @@ class CoreWorker:
             if self.actor_instance is None:
                 raise RuntimeError("actor task on non-actor worker")
             if spec["method"] == "__rt_dag_loop__":
-                raise NotImplementedError(
-                    "the compiled DAG's actor loop is not ported yet "
-                    "(ROADMAP.md, Queue A item A3e)")
+                # compiled-DAG execution loop (ray_tpu_torch.dag.compiled)
+                from ray_tpu_torch.dag.compiled import _dag_actor_loop
+                import functools
+                fn = functools.partial(_dag_actor_loop, self.actor_instance)
             else:
                 fn = getattr(self.actor_instance, spec["method"])
         else:

@@ -26,9 +26,8 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Capture a compiled-DAG node (reference: dag class_node bind)."""
-        raise NotImplementedError(
-            "the compiled DAG is not ported yet (ROADMAP.md, Queue A item "
-            "A3e)")
+        from ray_tpu_torch.dag.nodes import ClassMethodNode
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
     def options(self, **opts):
         # a plain instance, NOT a class defined in this closure: the
@@ -183,6 +182,11 @@ class ActorClass:
         self.__name__ = getattr(cls, "__name__", "ActorClass")
 
     def remote(self, *args, **kwargs) -> ActorHandle:
+        from ray_tpu_torch.client import current_client
+        cc = current_client()
+        if cc is not None:   # client-mode hook (reference: client_mode_hook)
+            return cc.remote(self._cls, **self._options).remote(
+                *args, **kwargs)
         from ray_tpu_torch import _get_worker
         w = _get_worker()
         opts = self._options

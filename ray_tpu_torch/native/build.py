@@ -1,9 +1,10 @@
 """Build the native components on demand.
 
-The native library (the shared-memory object store, a host library, not
-a kernel) is compiled with g++ once per source change into
-``ray_tpu_torch/_build/native/`` and loaded via ctypes (the C ABI +
-ctypes keeps the binding dependency-free).
+The native libraries (the shared-memory object store and the compiled
+DAG's mutable channels: host libraries, not kernels) are compiled with
+g++ once per source change into ``ray_tpu_torch/_build/native/`` and
+loaded via ctypes (the C ABI + ctypes keeps the binding
+dependency-free).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ _LOCK = threading.Lock()
 
 _SOURCES = {
     "shm_store": ["shm_store.cpp"],
+    "mutable_channel": ["mutable_channel.cpp"],
 }
 
 
@@ -44,3 +46,22 @@ def build(name: str) -> str:
     srcs = [os.path.join(_HERE, s) for s in _SOURCES[name]]
     return _compile(srcs, lib_path(name),
                     ["-O2", "-g", "-shared", "-fPIC"])
+
+
+# Standalone sanitizer harnesses: a main() program compiled WITH the
+# component's sources under -fsanitize and run as a subprocess by the
+# tests (tests/test_torch_dag_channels.py runs the channel's under
+# ASan+UBSan).
+_SELFTESTS = {
+    "mutable_channel_selftest": ["mutable_channel_selftest.cpp",
+                                 "mutable_channel.cpp"],
+}
+
+
+def build_selftest(name: str) -> str:
+    """Compile (if stale) an ASan+UBSan selftest binary; returns its path."""
+    srcs = [os.path.join(_HERE, s) for s in _SELFTESTS[name]]
+    out = os.path.join(_BUILD_DIR, f"{name}.asan_ubsan")
+    return _compile(srcs, out,
+                    ["-O1", "-g", "-fsanitize=address,undefined",
+                     "-fno-omit-frame-pointer"])

@@ -63,6 +63,11 @@ class RemoteFunction:
             self.__name__ = type(function).__name__
 
     def remote(self, *args, **kwargs):
+        from ray_tpu_torch.client import current_client
+        cc = current_client()
+        if cc is not None:   # client-mode hook (reference: client_mode_hook)
+            return cc.remote(self._function, **self._options).remote(
+                *args, **kwargs)
         from ray_tpu_torch import _get_worker
         w = _get_worker()
         opts = self._options

@@ -1580,6 +1580,11 @@ class MPMDPipelineTrainer:
         # (what their rollback returns to)
         self._pending: Optional[tuple] = None
         self._stage_snap_step = 0
+        # what a degraded recovery reports: the last boundary dropped
+        # (step, stage, cause) and the loss being recovered (step, stages,
+        # cause)
+        self._dropped: Optional[tuple] = None
+        self._loss: Optional[tuple] = None
         self._failures_left = self.failure_config.max_failures
         self.recoveries: List[Dict[str, Any]] = []
         self.history: List[Dict[str, Any]] = []
@@ -1886,7 +1891,9 @@ class MPMDPipelineTrainer:
                     if not h.ping(timeout=5.0)]
             raise StageLostError(
                 lost[0] if lost else first_err[0],
-                f"{type(first_err[1]).__name__}: {first_err[1]}",
+                f"stage {first_err[0]}'s apply raised first, "
+                f"{type(first_err[1]).__name__}: {first_err[1]}; "
+                f"unanswered pings {lost}",
                 stages=lost or [first_err[0]])
         return metrics
 
@@ -1934,8 +1941,9 @@ class MPMDPipelineTrainer:
                     else max(0.0, deadline - time.monotonic()))
             try:
                 snap = self.handles[s].seal(fut, left)
-            except StageLostError:
+            except StageLostError as e:
                 self._pending = None    # this boundary is lost
+                self._dropped = (step, s, e.cause)
                 return True
             if snap is None:
                 return False
@@ -1969,7 +1977,10 @@ class MPMDPipelineTrainer:
             return shards[0] if len(shards) == 1 else shards
         raise PipelineDegradedError(
             f"no restore source for stage {stage_idx} (snapshot lost "
-            "and no storage_path configured)")
+            f"and no storage_path configured): (step, stages, cause) lost "
+            f"{self._loss}; confirmed boundary "
+            f"{self._ckpt_step if self._snap_refs else None}; last "
+            f"dropped boundary (step, stage, cause) {self._dropped}")
 
     # ------------------------------------------------------------ recovery
     def _prepare_recovery(self, step, lost: List[int], cause: str = ""
@@ -1991,6 +2002,7 @@ class MPMDPipelineTrainer:
                 f"exhausted (max_failures="
                 f"{self.failure_config.max_failures})")
         self._failures_left -= 1
+        self._loss = (step, list(lost), cause)
         from ray_tpu_torch._private import events
         events.record_instant(
             "train.mpmd.stage_lost", category="train", step=step,
