@@ -53,7 +53,8 @@ Phases, each of which must pass (any failure exits non-zero):
    (the forward and the backward's recompute) and the dQ and dK/dV kernels
    once; the loss must fall. Step time, tokens/s, peak memory and an MFU
    are printed.
-8. The engine's features on tpu-7b at full width and depth (8 slots of
+8. The engine's features on tpu-7b at full width, cut to SERVE_LAYERS =
+   16 of its 32 layers (8 slots of
    1024 tokens, chunk 128, budget 256): (a) the prefix cache, with full
    precision and int8 blocks: 4 shared 384-token prefixes, 4 requests each;
    every request's greedy tokens must equal the same prompt's as a miss on
@@ -118,18 +119,19 @@ Phases, each of which must pass (any failure exits non-zero):
     adafactor(3e-4), seeded random weights; the embedding and the
     unembedding outside the stages, the last stage's loss the chunked
     cross-entropy against the unembedding). (a) The in-process MPMD
-    trainer (train/mpmd.py): 24 blocks in 2 stages of 12, 4 microbatches
-    of 1 x 1024 (phase 7's 4096 tokens per step), 1F1B, 3 steps: step 1's
-    loss against the same blocks run one after another (phase 5's loss
-    bound), each step launching B1 192 times (forward and the backward's
-    recompute) and B2 and B3 96 times, every stage program at one input
+    trainer (train/mpmd.py): 12 of the 24 blocks (PIPELINE_LAYERS) in 2
+    stages of 6, 4 microbatches of 1 x 1024 (phase 7's 4096 tokens per
+    step), 1F1B, 3 steps: step 1's loss against the same blocks run one
+    after another (phase 5's loss bound), each step launching B1 96
+    times (forward and the backward's recompute) and B2 and B3 48 times,
+    every stage program at one input
     shape; the step time, per-stage compute, host time, measured and
     analytic bubble, peak memory, the replay budget, the ratio to phase
     7's step and the trainer's StepProfiler record (runtime_mpmd_mfu) are
     printed. (b) The same with stage 1 killed in step 3's
     first forward: the recovery (park, rebuild from the step-2 snapshot,
     replay) must land (a)'s state digests bit for bit. (c) 4 virtual
-    stages of 6 blocks interleaved on 2 hosts against the plain 4-stage
+    stages of 3 blocks interleaved on 2 hosts against the plain 4-stage
     pipeline, 2 steps: bit-identical digests. (d) pipeline_apply on a
     mesh whose one dim is ``stage`` (world of one, S = 1), 2 blocks, 4
     microbatches: the loss and every gradient bitwise equal to the blocks
@@ -150,7 +152,7 @@ Phases, each of which must pass (any failure exits non-zero):
     actor with {"GPU": 0.5}, the weights through the object store; the
     step losses and state digests must equal 13 (a)'s bit for bit, and
     each step's B1/B2/B3 launches, counted in the actor processes and
-    summed by the trainer, 192/96/96; the step time, its ratio to 13 (a),
+    summed by the trainer, 96/48/48; the step time, its ratio to 13 (a),
     per-stage compute and each actor's peak memory are printed. (d) The
     same with stage 1's actor killed (ray_tpu_torch.kill) during step 3:
     the trainer provisions a new actor, restores it and replays, to (c)'s
@@ -304,13 +306,50 @@ Phases, each of which must pass (any failure exits non-zero):
     wall time and the trials' B1/B2/B3 launches (2/2/2 a step) are
     printed. (d) The versions of pyarrow and pandas, or that they are not
     installed.
+21. Cluster services on the card (ray_tpu_torch.scripts.cli,
+    .job_submission, .dashboard, .autoscaler, train.sharded_checkpoint,
+    serve.weights.checkpoint_weight_source), last before the kernels
+    line; every CLI call is a process with the repo on its path and a
+    TMPDIR of its own. (a) `cli start --head --dashboard` (the dashboard
+    on 127.0.0.1, a free port; a 16 GiB store); `cli submit --wait` of a
+    job that runs phase 17's recipe loop (tpu-3b at full width and
+    depth, bf16, adafactor(3e-4), remat "dots", phase 7's seeds and
+    batch) for 3 steps in a TorchTrainer with one num_gpus=1 worker,
+    whose last step saves the parameters with save_sharded: the job must
+    end SUCCEEDED through JobSubmissionClient, GET /api/jobs and `cli
+    list jobs`, its report must reach get_job_logs, its 3 losses must
+    equal phase 7's bit for bit, and each step must launch B1/B2/B3
+    48/24/24 times; the head's start, the worker's start, the step times
+    and the checkpoint's size and write rate are printed. (b) `cli serve
+    deploy` of a YAML naming an LLMDeployment of tpu-3b on a num_gpus=1
+    replica whose params_fn is checkpoint_weight_source of (a)'s
+    checkpoint: the parameters the replica restored must have the digest
+    the job's worker saved; 4 greedy requests at once over HTTP are each
+    held against a one-shot forward of the same checkpoint in this
+    process (phase 16's hold, NEAR_TIE_GAP); `cli serve status` must show
+    the application; after `cli serve delete` and `cli stop` no process
+    or /dev/shm file of the session may remain. The replica's time to
+    ready (its worker's start, the checkpoint's read and publish, in
+    GB/s) and each request's TTFT and TPOT are printed. (c) `cli up
+    --block` on a fake-provider YAML whose head offers no GPU and whose
+    one node type, gpu_worker, declares {"CPU": 1, "GPU": 1} (min 0, max
+    1, idle timeout 5 s): a num_gpus=1 task, the forward of the recipe's
+    first 2 blocks at full width on B=1, L=1024 with phase 13's seed
+    (weights made in the task), pends until the autoscaler launches the
+    node, must equal the same forward here bit for bit and launch B1
+    twice; the node must be removed once idle, and after `cli down` no
+    process or /dev/shm file of the session may remain. The times from
+    the submit to the node's start, the task's start and the node's
+    removal are printed, and the phase's wall time; the job's worker and
+    the autoscaled task count their launches (``cluster_launches``).
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
 Launch counts are zeroed just before each main-path phase (3, 4, 6, 7, 8,
 9, 10, 12, each part of 13, 16 (b), 18 (b), 19 (c)) and read just after
-it; phase 14's stage actors, phase 17's train workers and phase 20's
-actors and trials are fresh processes whose counts start at 0 (phase 20
+it; phase 14's stage actors, phase 17's and 21's train workers, phase
+20's actors and trials and phase 21's autoscaled task are fresh processes
+whose counts start at 0 (phase 20
 (a) zeroes its stages' counts again just before it compiles the DAG, and
 a trial counts each step's launches itself), and the trainer (the loop)
 sums what each reports per step; launches made to compare or time a
@@ -1632,11 +1671,13 @@ def near_tie(model, models, prompt, tokens, i, device):
 
 
 def run_engine_features(models, inference, ops, card, device="cuda",
-                        name="tpu-7b", **kw):
-    """Phase 8 on a fresh seeded model of `name` (bf16, as served), then
-    (c) again on its weights in fp32. Returns the kernels' launches in its
-    engines' runs."""
+                        name="tpu-7b", n_layers=None, **kw):
+    """Phase 8 on a fresh seeded model of `name` (bf16, as served; cut to
+    ``n_layers``), then (c) again on its weights in fp32. Returns the
+    kernels' launches in its engines' runs."""
     cfg = models.MODEL_REGISTRY[name]
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = models.TransformerLM(cfg, device="meta")
     model.load_state_dict(models.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device),
@@ -2204,6 +2245,12 @@ def sequential_loss(models, parallel, cfg, weights, data_fn, loss_chunk,
     return float(np.mean(losses))
 
 
+# phases 13 and 14 run tpu-3b's recipe blocks at full width cut to 12 of
+# its 24 layers (2 stages of 6), which leaves the whole smoke room for
+# phase 21
+PIPELINE_LAYERS = 12
+
+
 def run_pipeline(models, parallel, train, ops, card, recipe_step_s,
                  device="cuda", name="tpu-3b", n_layers=None, L=1024, M=4,
                  steps=3, inter_steps=2, spmd_blocks=2, loss_chunk=256,
@@ -2663,7 +2710,8 @@ def runtime_pipeline(models, parallel, train, ops, card, in_process,
     mem = tr.memory_stats()
     launches = [h.get("launches") for h in out["history"]]
     print(f"runtime pipeline: {name} weights into the store "
-          f"{put_s:.2f} s; 2 stage actors (resources {gpus}, pids "
+          f"{put_s:.2f} s (object {wref.id.hex()[:16]}); "
+          f"{arena_line(rt)}; 2 stage actors (resources {gpus}, pids "
           f"{[m['pid'] for m in mem]}) started in {start_s:.2f} s; losses "
           f"{losses} vs in-process {in_process['losses']} (bitwise "
           f"{losses == in_process['losses']}); digests equal "
@@ -2689,6 +2737,7 @@ def runtime_pipeline(models, parallel, train, ops, card, in_process,
         fail(f"the actor stages launched {launches}, want {want} per step")
     check_compiled_once("runtime pipeline", tr)
     tr.shutdown()
+    print(f"runtime pipeline (c): {arena_line(rt)}", flush=True)
 
     # (d) synchronous checkpoints at every step, and stage 1's actor
     # armed (the stage_step / stage_seal chaos channels) to die twice at
@@ -2736,8 +2785,20 @@ def runtime_pipeline(models, parallel, train, ops, card, in_process,
              f"{[h.get('launches') for h in out['history']]} in (d), want "
              f"{want} per step")
     tr.shutdown()
+    print(f"runtime pipeline (d): {arena_line(rt)}", flush=True)
     del wref
     return total
+
+
+def arena_line(rt):
+    """The driver node's arena: bytes in use of its capacity, and what
+    LRU eviction has taken (objects, bytes) since the store began."""
+    st = rt._get_worker().core.store.stats()
+    return (f"arena {st['bytes_in_use'] / 2 ** 30:.2f} of "
+            f"{st['capacity'] / 2 ** 30:.2f} GiB in use, "
+            f"{st['num_evictions']} objects ({st['bytes_evicted'] / 2 ** 30:.2f}"
+            f" GiB) and {st['span_evictions']} spanning objects evicted so "
+            f"far")
 
 
 def heartbeat_gap(rt, what):
@@ -2765,7 +2826,7 @@ def run_runtime(models, parallel, train, ops, card, in_process):
         runtime_card(rt, ops, card)
         runtime_objects(rt, card)
         counts = runtime_pipeline(models, parallel, train, ops, card,
-                                  in_process)
+                                  in_process, n_layers=PIPELINE_LAYERS)
         heartbeat_gap(rt, "runtime")
     finally:
         rt.shutdown()
@@ -2780,8 +2841,8 @@ def run_runtime(models, parallel, train, ops, card, in_process):
 
 # ------------------------------------------------------------- phase 16
 
-# phase 18 serves tpu-7b at full width cut to 16 of its 32 layers, which
-# leaves the whole smoke room for phase 20
+# phases 8 and 18 run tpu-7b at full width cut to 16 of its 32 layers,
+# which leaves the whole smoke room for phases 20 and 21
 SERVE_LAYERS = 16
 
 def _serve_classes(inference):
@@ -3457,7 +3518,11 @@ def recipe_worker_loop(config):
     (torch.save), and a run resumed from one continues after its step;
     with ``crash_after`` the worker exits once the trainer has stored that
     step's checkpoint (``crash_wait``), once (a marker file remembers
-    it)."""
+    it). With ``save_to`` the last step saves the parameters there with
+    ``save_sharded`` (phase 21) and reports the write's time, its bytes
+    and the parameters' digest. Each report carries when the loop began
+    (``t_loop``, the host's clock)."""
+    t_loop = time.time()
     import tempfile
 
     import ray_tpu_torch as rt
@@ -3504,7 +3569,18 @@ def recipe_worker_loop(config):
                          if device == "cuda" else None),
             "gpu_ids": rt.get_gpu_ids(),
             "mask": os.environ.get("CUDA_VISIBLE_DEVICES"),
-            "resumed": resumed is not None, "t_end": time.time()}
+            "resumed": resumed is not None, "t_end": time.time(),
+            "t_loop": t_loop}
+        if config.get("save_to") and state.step == config["steps"]:
+            from ray_tpu_torch.train.sharded_checkpoint import save_sharded
+            sd = model.state_dict()
+            sync(device)
+            t0 = time.perf_counter()
+            save_sharded(sd, config["save_to"])
+            report["ckpt"] = {
+                "s": time.perf_counter() - t0, "digest": params_digest(sd),
+                "bytes": sum(t.numel() * t.element_size()
+                             for t in sd.values())}
         ckpt = None
         if config["checkpoint"]:
             with tempfile.TemporaryDirectory() as d:
@@ -4951,6 +5027,443 @@ def run_dag_client_tune(models, ops, card, device="cuda", name="tpu-3b",
     return dag_counts, client_counts, tune_counts
 
 
+# ------------------------------------------------------------- phase 21
+
+def params_digest(sd):
+    """sha256 over a state dict's names, dtypes, shapes and bytes, in
+    name order: what phase 21 holds a checkpoint's readers to."""
+    import hashlib
+    h = hashlib.sha256()
+    for n in sorted(sd):
+        t = sd[n].detach().contiguous().cpu().reshape(-1)
+        h.update(f"{n}:{t.dtype}:{tuple(sd[n].shape)}".encode())
+        h.update(t.view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def phase21_job(config_json):
+    """Phase 21 (a)'s job entrypoint, run by the job's supervisor as
+    ``python -c 'import chip_smoke; ...'`` with the cluster's address in
+    its environment: phase 17's recipe loop in a num_gpus=1 TorchTrainer
+    worker, its last step saving the parameters with save_sharded; prints
+    the reports on one line that starts with PHASE21."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import train
+    config = json.loads(config_json)
+    rt.init()
+    t_fit = time.time()
+    res = train.TorchTrainer(
+        recipe_worker_loop, train_loop_config=config,
+        scaling_config=train.ScalingConfig(
+            num_workers=1, use_gpu=config["device"] == "cuda"),
+        run_config=train.RunConfig(storage_path=config["tmp"],
+                                   name="phase21")).fit()
+    if res.error is not None:
+        raise res.error
+    print("PHASE21 " + json.dumps({"t_fit": t_fit,
+                                   "history": res.metrics_history},
+                                  default=str), flush=True)
+
+
+def build_phase21_app(path, name, num_gpus, engine):
+    """Phase 21 (b)'s application, named by the YAML that ``cli serve
+    deploy`` reads: LLMDeployment of ``name`` whose params_fn is
+    checkpoint_weight_source(path), recording the digest of the
+    parameters it restored, its construction's start and length and how
+    the weight source resolved. The class is made here, in a function,
+    so the runtime ships it by value."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.inference.api import LLMDeployment
+
+    class CheckpointLLM(LLMDeployment):
+        def __init__(self, path, name, **engine):
+            from ray_tpu_torch.serve import weights
+            self.t_init = time.time()
+            source = weights.checkpoint_weight_source(path)
+
+            def params_fn():
+                params = source()
+                self.digest = params_digest(params)
+                return params
+            super().__init__(name, params_fn=params_fn, weights_key=None,
+                             **engine)
+            self.init_s = time.time() - self.t_init
+            self.weights = dict(weights.last_resolve)
+
+        def probe(self):
+            import ray_tpu_torch as rt
+            return {"digest": self.digest, "t_init": self.t_init,
+                    "init_s": self.init_s, "weights": self.weights,
+                    "pid": os.getpid(), "ids": rt.get_gpu_ids(),
+                    "mask": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    gpus = {"num_gpus": num_gpus} if num_gpus else {}
+    return serve.deployment(CheckpointLLM, name="llm",
+                            ray_actor_options=gpus).bind(path, name,
+                                                         **engine)
+
+
+def autoscaled_forward(name, n_layers, L, device):
+    """Phase 21 (c)'s task: the forward of the first ``n_layers`` blocks
+    of ``name``'s recipe at full width (phase 20's DagStage: phase 13's
+    seed, made here on the task's card, so nothing rides the node's
+    arena), B=1, the final norm and head on the last position. Returns
+    the logits, the flash launches and when the task began."""
+    t_start = time.time()
+    from ray_tpu_torch.ops import attention as ops
+    torch.set_float32_matmul_precision("highest")
+    zero_counts(ops)
+    stage = DagStage(name, n_layers, 0, 1, device)
+    tokens = _dag_tokens(stage.cfg.vocab_size, 1, L, 1, device)[0]
+    out = stage.forward(tokens).cpu()
+    return {"t_start": t_start, "logits": out, "launches": read_counts(ops),
+            "mask": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def _cli(args, env, timeout=900):
+    """``python -m ray_tpu_torch.scripts.cli`` as a process; fails the
+    smoke when it exits non-zero."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", *args],
+        env=env, capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        fail(f"cli {' '.join(args[:3])} exited {out.returncode}: "
+             f"{out.stdout[-2000:]} {out.stderr[-2000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def _cluster_env(tmp):
+    """What the port's CLI and the cluster it starts run with: the repo
+    and nothing else on the path, and a TMPDIR of their own (the head
+    file and the session's logs go under it)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, TMPDIR=os.path.join(tmp, "t"))
+    env.pop("RAY_TPU_TORCH_ADDRESS", None)
+    os.makedirs(env["TMPDIR"], exist_ok=True)
+    return env
+
+
+def cluster_job(rt, card, env, tmp, recipe_steps, config):
+    """Phase 21 (a): a head from the CLI with the dashboard on loopback, a
+    submitted job training ``config``'s recipe in a num_gpus=1 worker and
+    saving a sharded checkpoint. Returns the session, the dashboard's
+    address, the checkpoint's digest and the worker's launches."""
+    import re
+    import shlex
+    import urllib.request
+
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    out, head_s = _cli(["start", "--head", "--dashboard", "--dashboard-port",
+                        "0", "--object-store-memory",
+                        str(config["store_bytes"])], env)
+    dash = re.search(r"dashboard at (http://\S+)", out).group(1)
+    with open(os.path.join(env["TMPDIR"], "raytpu_torch",
+                           "latest_head.json")) as f:
+        head = json.load(f)
+    print(f"cluster (a): torch {torch.__version__}; `cli start --head "
+          f"--dashboard` {head_s:.2f} s, GCS {head['gcs_address']}, session "
+          f"{head['session']}, dashboard {dash} [{card}]", flush=True)
+    if not dash.startswith("http://127.0.0.1:"):
+        fail(f"the dashboard listens on {dash}, not on loopback")
+    job_cfg = {k: config[k] for k in ("device", "name", "n_layers", "B", "L",
+                                      "steps", "loss_chunk", "lr")}
+    job_cfg.update(checkpoint=False, tmp=tmp, save_to=config["ckpt"])
+    entry = (f"{sys.executable} -c 'import sys, chip_smoke; "
+             f"chip_smoke.phase21_job(sys.argv[1])' "
+             f"{shlex.quote(json.dumps(job_cfg))}")
+    t_submit = time.time()
+    out, job_s = _cli(["submit", "--wait", "--timeout", "900", entry], env)
+    job_id = re.search(r"submitted (\S+)", out).group(1)
+    rt.init(address=head["gcs_address"])
+    client = JobSubmissionClient()
+    status = client.get_job_status(job_id)
+    logs = client.get_job_logs(job_id)
+    with urllib.request.urlopen(f"{dash}/api/jobs", timeout=30) as r:
+        rest = {j["job_id"]: j["status"] for j in json.loads(r.read())}
+    listed = {str(j["job_id"]): j.get("status") for j in
+              json.loads(_cli(["list", "jobs"], env)[0])}
+    print(f"cluster (a): job {job_id} {status} in {job_s:.1f} s (`cli "
+          f"submit --wait`); through /api/jobs {rest.get(job_id)}, `cli list "
+          f"jobs` {listed.get(job_id)}; {len(logs.splitlines())} log lines "
+          f"through get_job_logs", flush=True)
+    if {status, rest.get(job_id), listed.get(job_id)} != {"SUCCEEDED"}:
+        fail("the job did not end SUCCEEDED through the client, the "
+             "dashboard and the CLI")
+    line = [x for x in logs.splitlines() if x.startswith("PHASE21 ")]
+    if not line:
+        fail(f"the job's report never reached get_job_logs: {logs[-2000:]}")
+    report = json.loads(line[-1][len("PHASE21 "):])
+    hist = report["history"]
+    n = (config["n_layers"] or models_registry_layers(config["name"])) \
+        if config["device"] == "cuda" else 0
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    launches = {k: 0 for k in want}
+    print(f"cluster (a): the train worker's loop began "
+          f"{hist[0]['t_loop'] - report['t_fit']:.2f} s after fit() "
+          f"({hist[0]['t_loop'] - t_submit:.2f} s after the submit) [{card}]",
+          flush=True)
+    for h, (loss, gnorm, _) in zip(hist, recipe_steps):
+        same = h["loss"] == loss and h["grad_norm"] == gnorm
+        print(f"cluster (a) step {h['step']}: loss {h['loss']!r} (phase 7: "
+              f"{loss!r}, bitwise {same}), {h['step_s'] * 1e3:.1f} ms, "
+              f"launches {h['launches']} [{card}]", flush=True)
+        if not same:
+            fail(f"cluster job step {h['step']}: loss/grad_norm differ from "
+                 f"phase 7's in-process step")
+        if h["launches"] != want:
+            fail(f"cluster job step {h['step']} launched {h['launches']}, "
+                 f"want {want}")
+        for k in want:
+            launches[k] += h["launches"][k]
+    if len(hist) != config["steps"]:
+        fail(f"the job reported {len(hist)} steps")
+    ck = hist[-1]["ckpt"]
+    print(f"cluster (a): save_sharded wrote {ck['bytes'] / 1e9:.3f} GB in "
+          f"{ck['s']:.2f} s ({ck['bytes'] / ck['s'] / 1e9:.2f} GB/s), digest "
+          f"{ck['digest'][:16]} [{card}]", flush=True)
+    return head, dash, ck["digest"], launches
+
+
+def models_registry_layers(name):
+    from ray_tpu_torch.models import MODEL_REGISTRY
+    return MODEL_REGISTRY[name].n_layers
+
+
+def cluster_serve(rt, serve, models, inference, card, env, tmp, head, digest,
+                  config):
+    """Phase 21 (b): `cli serve deploy` of an LLMDeployment whose
+    params_fn reads (a)'s checkpoint; the replica's params digest,
+    greedy requests over HTTP against a one-shot forward of the same
+    checkpoint in this process, `cli serve status`, then `cli serve
+    delete` and `cli stop`, after which nothing of the session is
+    left."""
+    import yaml
+
+    from ray_tpu_torch.inference.api import _load_params, _resolve_model
+    from ray_tpu_torch.train.sharded_checkpoint import restore_host_arrays
+    device, name = config["device"], config["name"]
+    spec = {"http_options": {"port": 0}, "applications": [{
+        "name": "llm", "route_prefix": "/",
+        "import_path": "chip_smoke:build_phase21_app",
+        "args": {"path": config["ckpt"], "name": name,
+                 "num_gpus": 1 if device == "cuda" else 0,
+                 "engine": dict(config["engine"], device=device)}}]}
+    path = os.path.join(tmp, "serve.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(spec, f)
+    t_deploy = time.time()
+    _, deploy_s = _cli(["serve", "deploy", path], env)
+    handle = serve.get_app_handle("llm")
+    (info,) = [rt.get(r.handle_request.remote("probe", (), {}), timeout=900)
+               for r in _replicas(handle, 1)]
+    ready_s = time.time() - t_deploy
+    w = info["weights"]
+    gb = config["ckpt_bytes"] / 1e9
+    print(f"cluster (b): `cli serve deploy` {deploy_s:.2f} s; replica ready "
+          f"{ready_s:.2f} s after the deploy began: its worker's start "
+          f"{info['t_init'] - t_deploy:.2f} s, the LLMDeployment "
+          f"construction {info['init_s']:.2f} s, of which the checkpoint "
+          f"read {w.get('load_s', float('nan')):.2f} s "
+          f"({gb / w.get('load_s', float('nan')):.2f} GB/s) and the publish "
+          f"{w.get('publish_s', float('nan')):.2f} s "
+          f"({gb / w.get('publish_s', float('nan')):.2f} GB/s), source "
+          f"{w.get('source')}; GPU ids {info['ids']} mask {info['mask']!r}; "
+          f"params digest {info['digest'][:16]} (job's {digest[:16]}) "
+          f"[{card}]", flush=True)
+    if info["digest"] != digest:
+        fail("the replica's restored params differ from the job's")
+    if w.get("source") != "loader" or not w.get("published"):
+        fail(f"the checkpoint was not read and published once: {w}")
+    (addr,) = [p["http"] for p in serve.proxies().values()]
+    cfg = models.MODEL_REGISTRY[name]
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in config["lens"]]
+    new = config["new"]
+
+    def over_http(p, n, out, i):
+        _http_stream(f"http://{addr}/", {"prompt_tokens": p.tolist(),
+                                          "max_new_tokens": n}, out, i)
+    runs = _concurrently(over_http, list(zip(prompts, new)))
+    for i, (r, n) in enumerate(zip(runs, new)):
+        if r is None or r["status"] != 200 or len(r["tokens"]) != n:
+            fail(f"cluster (b): request {i} gave "
+                 f"{None if r is None else (r['status'], len(r['tokens']))}")
+    print(f"cluster (b): {len(prompts)} greedy requests at once over HTTP; "
+          f"per request (TTFT ms, TPOT ms) "
+          f"{[_ttft_tpot(r['times']) for r in runs]} [{card}]", flush=True)
+    model = _load_params(_resolve_model(name),
+                         restore_host_arrays(config["ckpt"]), device)
+    check_one_shot("cluster serve", model, models, prompts,
+                   [r["tokens"] for r in runs], device)
+    del model
+    release(device)
+    st = json.loads(_cli(["serve", "status"], env)[0])
+    print(f"cluster (b): `cli serve status` applications "
+          f"{st['applications']}", flush=True)
+    if "llm" not in st["applications"] or not st["applications"]["llm"]:
+        fail("`cli serve status` does not show the application")
+    _cli(["serve", "delete", "llm"], env)
+    rt.shutdown()
+    _cli(["stop"], env)
+    left, shm = session_left(head["session"])
+    print(f"cluster (b): after `cli serve delete` and `cli stop`, the "
+          f"session's processes {left}, /dev/shm files {shm}", flush=True)
+    if left or shm:
+        fail("`cli stop` left processes or shared-memory files behind")
+
+
+ASC_YAML = """\
+cluster_name: phase21
+provider: {type: fake}
+head: {num_cpus: 1, resources: {GPU: 0}}
+available_node_types:
+  gpu_worker:
+    resources: {CPU: 1, GPU: 1}
+    min_workers: 0
+    max_workers: 1
+idle_timeout_s: %s
+"""
+
+
+def cluster_autoscale(rt, card, env, tmp, config):
+    """Phase 21 (c): `cli up --block` on a fake-provider cluster whose
+    head offers no GPU; a num_gpus=1 task pends until the autoscaler
+    launches the gpu_worker node, runs the forward of the recipe's first
+    blocks there, equal bit for bit to the same forward here; the idle
+    node is removed, and `cli down` leaves nothing of the session.
+    Returns the task's launches."""
+    device = config["device"]
+    path = os.path.join(tmp, "cluster.yaml")
+    with open(path, "w") as f:
+        f.write(ASC_YAML % config["idle_timeout_s"])
+    state = os.path.join(env["TMPDIR"], "raytpu_torch",
+                         "cluster_launcher.json")
+    t0 = time.perf_counter()
+    up = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "up", "--block",
+         path], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        while not os.path.exists(state):
+            if up.poll() is not None or time.perf_counter() - t0 > 120:
+                fail(f"`cli up` did not bring the cluster up: "
+                     f"{up.stdout.read()[-2000:]}")
+            time.sleep(0.1)
+        with open(state) as f:
+            st = json.load(f)
+        up_s = time.perf_counter() - t0
+        rt.init(address=st["gcs_address"])
+        task = rt.remote(autoscaled_forward).options(
+            num_gpus=1, num_cpus=0)
+        t_submit = time.time()
+        ref = task.remote(config["name"], config["asc_layers"],
+                          config["asc_L"], device)
+        node_up = None
+        while node_up is None:
+            if sum(n["alive"] for n in rt.nodes()) > 1:
+                node_up = time.time() - t_submit
+            elif time.time() - t_submit > 120:
+                fail("the autoscaler launched no node for the GPU task")
+            time.sleep(0.05)
+        got = rt.get(ref, timeout=600)
+        t_done = time.time()
+        removed = None
+        while removed is None:
+            if sum(n["alive"] for n in rt.nodes()) == 1:
+                removed = time.time() - t_submit
+            elif time.time() - t_done > 120:
+                fail("the autoscaler did not remove the idle GPU node")
+            time.sleep(0.1)
+        rt.shutdown()
+        want = autoscaled_forward(config["name"], config["asc_layers"],
+                                  config["asc_L"], device)
+        same = torch.equal(got["logits"], want["logits"])
+        print(f"cluster (c): `cli up` {up_s:.2f} s; from the GPU task's "
+              f"submit: node up {node_up:.2f} s, the task began "
+              f"{got['t_start'] - t_submit:.2f} s, ended "
+              f"{t_done - t_submit:.2f} s, node removed {removed:.2f} s "
+              f"(idle timeout {config['idle_timeout_s']} s); mask "
+              f"{got['mask']!r}; launches {got['launches']} (here "
+              f"{want['launches']}); logits {tuple(got['logits'].shape)} "
+              f"bitwise equal to the same forward here: {same} [{card}]",
+              flush=True)
+        if not same:
+            fail("the autoscaled node's forward differs from this process's")
+        n = config["asc_layers"] if device == "cuda" else 0
+        if got["launches"]["flash_fwd"] != n or \
+                got["launches"]["flash_bwd_dq"] or \
+                got["launches"]["flash_bwd_dkv"]:
+            fail(f"the autoscaled task launched {got['launches']}, want "
+                 f"{n} B1")
+        _cli(["down"], env)
+        if up.wait(timeout=60) != 0:
+            fail(f"`cli up --block` exited {up.returncode}")
+    finally:
+        if up.poll() is None:
+            up.kill()
+            up.wait()
+    left, shm = session_left(st["session"])
+    print(f"cluster (c): after `cli down`, the session's processes {left}, "
+          f"/dev/shm files {shm}", flush=True)
+    if left or shm:
+        fail("`cli down` left processes or shared-memory files behind")
+    return got["launches"]
+
+
+def run_cluster_services(models, inference, ops, card, recipe_steps,
+                         device="cuda", name="tpu-3b", n_layers=None, B=4,
+                         L=1024, steps=3, loss_chunk=256, lr=3e-4,
+                         engine=None, lens=(37, 100, 250, 500),
+                         new=(16, 16, 16, 16), asc_layers=2, asc_L=1024,
+                         idle_timeout_s=5, store_gib=16):
+    """Phase 21: a cluster started from the port's CLI trains ``name``,
+    checkpoints it and serves it from the checkpoint; then the
+    autoscaler launches a GPU node for pending demand and removes it.
+    Returns the flash launches of the job's worker and of the autoscaled
+    task."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase21_")
+    env = _cluster_env(tmp)
+    config = dict(device=device, name=name, n_layers=n_layers, B=B, L=L,
+                  steps=steps, loss_chunk=loss_chunk, lr=lr,
+                  ckpt=os.path.join(tmp, "ckpt"),
+                  store_bytes=store_gib * 2 ** 30,
+                  engine=engine or dict(n_slots=4, max_len=1024,
+                                        prefill_chunk=256,
+                                        prefill_budget=512),
+                  lens=lens, new=new, asc_layers=asc_layers, asc_L=asc_L,
+                  idle_timeout_s=idle_timeout_s)
+    try:
+        t0 = time.perf_counter()
+        head, dash, digest, launches = cluster_job(rt, card, env, tmp,
+                                                   recipe_steps[:steps],
+                                                   config)
+        print(f"cluster (a): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        config["ckpt_bytes"] = sum(
+            os.path.getsize(os.path.join(config["ckpt"], f))
+            for f in os.listdir(config["ckpt"]))
+        cluster_serve(rt, serve, models, inference, card, env, tmp, head,
+                      digest, config)
+        print(f"cluster (b): {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        for k, n in cluster_autoscale(rt, card, env, tmp, config).items():
+            launches[k] += n
+        print(f"cluster (c): {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        if rt.is_initialized():
+            rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cluster: phase 21 {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {launches} [{card}]", flush=True)
+    return launches
+
+
 PHASE_WALL = {}
 
 
@@ -5021,7 +5534,8 @@ def main():
             models, parallel, ops, card)
     release("cuda")
     with phase("8"):
-        feature_counts = run_engine_features(models, inference, ops, card)
+        feature_counts = run_engine_features(models, inference, ops, card,
+                                             n_layers=SERVE_LAYERS)
     with phase("9"):
         moe_serve_launches = run_moe_serving(models, inference, ops, card)
     with phase("10"):
@@ -5040,7 +5554,8 @@ def main():
                            together=False, fsdp=1, expert=-1)]
     with phase("13"):
         pipeline_counts, in_process = run_pipeline(
-            models, parallel, train, ops, card, recipe_step_s)
+            models, parallel, train, ops, card, recipe_step_s,
+            n_layers=PIPELINE_LAYERS)
     release("cuda")
     with phase("14"):
         runtime_counts = run_runtime(models, parallel, train, ops, card,
@@ -5062,6 +5577,10 @@ def main():
     with phase("20"):
         dag_counts, client_counts, tune_counts = run_dag_client_tune(
             models, ops, card)
+    release("cuda")
+    with phase("21"):
+        cluster_counts = run_cluster_services(models, inference, ops, card,
+                                              recipe_steps)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)
@@ -5072,7 +5591,8 @@ def main():
                                      + executor_counts[name]
                                      + dag_counts[name]
                                      + client_counts[name]
-                                     + tune_counts[name])
+                                     + tune_counts[name]
+                                     + cluster_counts[name])
         records[name]["mesh_launches"] = sum(c[name] for c in mesh_counts)
         records[name]["pipeline_launches"] = pipeline_counts[name]
         records[name]["actor_launches"] = runtime_counts[name]
@@ -5083,6 +5603,7 @@ def main():
         records[name]["dag_launches"] = dag_counts[name]
         records[name]["client_launches"] = client_counts[name]
         records[name]["tune_launches"] = tune_counts[name]
+        records[name]["cluster_launches"] = cluster_counts[name]
     records["flash_fwd"]["launches"] += (gen_launches + eng_launches
                                          + moe_serve_launches)
     for name in KERNELS:

@@ -41,6 +41,10 @@ from ray_tpu_torch._private.proc_util import runtime_dir
 
 logger = logging.getLogger(__name__)
 
+# how long a copy restored from spill for a reader stays resident before
+# the spill sweep may drop it again (the reader pins it when it reads it)
+RESTORE_GRACE_S = 30.0
+
 # tunables live in config.py (transfer_chunk_bytes, heartbeat_interval_s,
 # view_refresh_s, lease_wait_timeout_s, ...)
 
@@ -158,6 +162,10 @@ class NodeManager:
         # queued lease demand, reported in heartbeats for the autoscaler
         self._pending_demand: List[Dict[str, float]] = []
         self._spill_mutex = threading.Lock()
+        # one restore at a time: a second reader of an object being
+        # restored waits for its seal instead of finding it unsealed (or
+        # failing its own create of the same id)
+        self._restore_mutex = threading.Lock()
         # leaked objects the GCS ledger sweep told us to reclaim under
         # pressure (consumed first by the spill pass — deleting a leaked
         # object frees bytes without disk IO). Mutated from the owner
@@ -267,6 +275,8 @@ class NodeManager:
                                          f"spill_{self.node_id[:8]}")
             self._spill_remote = False
         self.spilled: Dict[bytes, str] = {}
+        # when each spilled object was last restored for a reader
+        self._restored_at: Dict[bytes, float] = {}
         # flight-recorder sink: this daemon is not a worker, so its
         # spill/restore/transfer spans ship over the node manager's own
         # GCS connection (resolved at call time — it is replaced on GCS
@@ -2119,7 +2129,14 @@ class NodeManager:
         None if the object was skipped."""
         if oid in self.spilled:
             # already on disk (a restored copy) — just drop the resident
-            # copy; the native store defers the delete if clients pin it
+            # copy; the native store defers the delete if clients pin it.
+            # A copy restored moments ago stays: its reader has not read
+            # (pinned) it yet, and dropping it now loses the object for
+            # that reader
+            if time.monotonic() - self._restored_at.get(oid, -1e18) \
+                    < RESTORE_GRACE_S:
+                return None
+            self._restored_at.pop(oid, None)
             self.store.delete(oid)
             ledger.record(oid, "location_remove", node_id=self.node_id,
                           reason="spill_drop")
@@ -2166,6 +2183,10 @@ class NodeManager:
             None, self._restore_sync, oid)
 
     def _restore_sync(self, oid: bytes):
+        with self._restore_mutex:
+            return self._restore_locked(oid)
+
+    def _restore_locked(self, oid: bytes):
         if self.store.contains(oid):
             return True
         path = self.spilled.get(oid)
@@ -2198,6 +2219,7 @@ class NodeManager:
             if meta:
                 mview[:] = meta
             self.store.seal(oid)
+            self._restored_at[oid] = time.monotonic()
             rspan.end(ok=True, bytes=len(data) + len(meta))
             ledger.record(oid, "restored", node_id=self.node_id,
                           size=len(data) + len(meta))
@@ -2213,6 +2235,7 @@ class NodeManager:
         except Exception:
             pass
         path = self.spilled.pop(oid, None)
+        self._restored_at.pop(oid, None)
         if path is not None:
             try:
                 os.unlink(path)

@@ -662,7 +662,8 @@ class DeploymentHandle:
     def _invoke(self, method: str, args, kwargs,
                 retry: int = 2,
                 allow_resubmit: bool = True,
-                shed_depth: int = 0) -> DeploymentResponse:
+                shed_depth: int = 0,
+                avoid: Optional[set] = None) -> DeploymentResponse:
         # burn-aware shedding (serve/fleet.py): a saturated deployment
         # with a fallback_model hands NEW requests down the fallback
         # ladder (each rung may shed again; depth-capped so a cycle in
@@ -700,7 +701,8 @@ class DeploymentHandle:
             except (TypeError, ValueError):
                 prompt = None
         last_err = None
-        avoid: set = set()    # replicas that already failed this call
+        # replicas that already failed this call
+        avoid = set(avoid or ())
         from ray_tpu_torch._private import events
         for _ in range(retry + 1):
             hint_out: Optional[Dict] = {} if prompt is not None else None
@@ -724,7 +726,8 @@ class DeploymentHandle:
                     resume = None
                     if allow_resubmit:
                         resume = self._make_stream_resume(method, args,
-                                                          kwargs, retry)
+                                                          kwargs, retry,
+                                                          replica)
                     return DeploymentResponseGenerator(
                         ref_gen, self._router, idx, resume=resume,
                         record_chunks=self._router.resumable,
@@ -739,7 +742,8 @@ class DeploymentHandle:
                     resub = lambda: (  # noqa: E731
                         self._router.refresh(force=True)
                         or self._invoke(method, args, kwargs, retry=retry,
-                                        allow_resubmit=False))
+                                        allow_resubmit=False,
+                                        avoid=self._listed(replica)))
                 return DeploymentResponse(ref, self._router, idx,
                                           resubmit=resub)
             except Exception as e:
@@ -789,24 +793,36 @@ class DeploymentHandle:
             session_id=getattr(self, "_session_id", ""),
             tenant=getattr(self, "_tenant", ""))
 
-    def _make_stream_resume(self, method, args, kwargs, retry):
+    def _listed(self, replica) -> set:
+        """Where ``replica`` sits in the router's current list: the
+        re-route after its death avoids it, which the controller may not
+        have taken off the list yet."""
+        rid = getattr(replica, "_actor_id", None)
+        return {i for i, r in enumerate(self._router.replicas)
+                if rid is not None and getattr(r, "_actor_id", None) == rid}
+
+    def _make_stream_resume(self, method, args, kwargs, retry, severed):
         """One-shot re-route for a stream severed by replica death (the
         streaming counterpart of DeploymentResponse's resubmit). Returns
         (fresh DeploymentResponseGenerator, chunks_to_skip): resumable
         deployments receive the delivered chunks as resume_tokens and
         continue from the exact next position (skip 0); non-resumable
         ones restart the stream internally and the caller skips the
-        first `delivered` chunks so the client never sees a duplicate."""
+        first `delivered` chunks so the client never sees a duplicate.
+        The re-route avoids the ``severed`` replica while it is still
+        listed."""
         def resume(delivered: int, chunks):
             self._router.refresh(force=True)
+            avoid = self._listed(severed)
             if self._router.resumable and chunks is not None:
                 kw = dict(kwargs)
                 prior = list(kw.pop("resume_tokens", None) or [])
                 kw["resume_tokens"] = prior + list(chunks)
                 return self._invoke(method, args, kw, retry=retry,
-                                    allow_resubmit=False), 0
+                                    allow_resubmit=False, avoid=avoid), 0
             return self._invoke(method, args, kwargs, retry=retry,
-                                allow_resubmit=False), delivered
+                                allow_resubmit=False,
+                                avoid=avoid), delivered
         return resume
 
     def remote(self, *args, **kwargs) -> DeploymentResponse:

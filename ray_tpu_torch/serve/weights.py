@@ -33,9 +33,9 @@ tensors. It is published as CPU tensors, each one out-of-band buffer of
 the object store, so an attach reads views of the arena (zero-copy) and
 moves them to its own device (``LLMDeployment``).
 
-``checkpoint_weight_source(path)`` would build a params_fn whose miss
-path is ``sharded_checkpoint.restore_and_broadcast``: that half of the
-checkpoint module is not ported yet (ROADMAP.md, Queue A item A7).
+``checkpoint_weight_source(path)`` builds a params_fn whose miss path
+reads a sharded checkpoint (``train/sharded_checkpoint.py``) into CPU
+tensors once and publishes it through the weight plane.
 
 Outside a cluster everything degrades to a bare ``loader()`` call, so
 the same deployment code runs in unit tests and bare scripts.
@@ -248,10 +248,16 @@ def checkpoint_weight_source(path: str,
     ``sharded_checkpoint.restore_and_broadcast``: the first attach reads
     the checkpoint off storage ONCE and fans it out over the weight
     plane; every other attach (and every shell revival) gets a local
-    arena attach. Outside a cluster it reads the checkpoint directly.
+    arena attach. Outside a cluster it reads the checkpoint directly."""
+    key = key or f"ckpt/{path}"
 
-    Not ported yet: it reads the orbax half of ``sharded_checkpoint``."""
-    raise NotImplementedError(
-        "checkpoint_weight_source reads the orbax half of "
-        "train/sharded_checkpoint.py, which is not ported yet (ROADMAP.md, "
-        "Queue A item A7)")
+    def params_fn():
+        from ray_tpu_torch.train.sharded_checkpoint import \
+            restore_host_arrays
+        if not _connected():
+            return restore_host_arrays(path)
+
+        def loader():
+            return restore_host_arrays(path)
+        return resolve_weight_source(key, loader)
+    return params_fn

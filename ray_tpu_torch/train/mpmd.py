@@ -91,11 +91,13 @@ STEP_TIMEOUT_S = 300.0
 
 class StageLostError(RuntimeError):
     """One or more stages died or failed mid-step; carries the lost stage
-    indexes."""
+    indexes (``stages=[]``: a step failed and no stage was shown lost,
+    so every stage goes back to the boundary)."""
 
     def __init__(self, stage_idx: int, cause: str = "",
                  stages: Optional[List[int]] = None):
-        self.stages = sorted(set(stages or [stage_idx]))
+        self.stages = sorted(set(stages if stages is not None
+                                 else [stage_idx]))
         super().__init__(f"pipeline stage(s) {self.stages} lost"
                          + (f": {cause}" if cause else ""))
         self.stage_idx = stage_idx
@@ -846,6 +848,7 @@ class LocalStageHandle:
         self._marker = preempt_marker
         self._fail_at = fail_at
         self._dead = False
+        self._incarnation = os.urandom(8).hex()
 
     def _chaos(self, step: int, op: str):
         if self._dead:
@@ -946,8 +949,9 @@ class LocalStageHandle:
     def state_digest(self) -> _Now:
         return self._call(lambda: [rt.state_digest() for rt in self._rts])
 
-    def ping(self, timeout: Optional[float] = None) -> bool:
-        return not self._dead
+    def incarnation(self, timeout: Optional[float] = None) -> Optional[str]:
+        """Who answers for the stage (None: nobody)."""
+        return None if self._dead else self._incarnation
 
     def preempting(self) -> bool:
         if self._dead:
@@ -989,7 +993,7 @@ class PipelineStageActor:
     is set before this constructor runs). Compute methods ride the
     DEFAULT (ordered) concurrency group — dispatch order is execution
     order, which the replay-determinism guarantee leans on; control
-    methods (ping/abort/rollback/...) declare the ``control`` group so
+    methods (incarnation/abort/rollback/...) declare the ``control`` group so
     the controller can park or probe a stage while compute is queued.
     Chaos: the ``stage_step`` injection SIGKILLs the process mid-step,
     the ``stage_seal`` one before a boundary's snapshot is sealed
@@ -1012,6 +1016,7 @@ class PipelineStageActor:
         if snapshot is not None:
             _restore_chunks(self._rts, self._materialize(snapshot))
         self._launch_base = _kernel_launches()
+        self._incarnation = f"{os.getpid()}-{os.urandom(4).hex()}"
         self._marker = preempt_marker
         self._preempting = False
         self._shard_writer = None
@@ -1190,8 +1195,9 @@ class PipelineStageActor:
         return {"pid": os.getpid(), "peak_bytes": int(peak),
                 "device": str(dev)}
 
-    def ping(self):
-        return True
+    def incarnation(self):
+        """This process's token: a restarted actor answers with another."""
+        return self._incarnation
 
     def preempting(self):
         return self._preempting
@@ -1210,7 +1216,7 @@ class PipelineStageActor:
 # exactly at the step boundary.
 for _name in ("abort_step", "rollback", "restore", "compile_counts",
               "state_digest", "memory_stats", "trace_start", "trace_stop",
-              "ping", "preempting", "stop",
+              "incarnation", "preempting", "stop",
               "set_storage_path", "checkpoint_result"):
     getattr(PipelineStageActor, _name).__concurrency_group__ = "control"
 del _name
@@ -1310,13 +1316,14 @@ class ActorStageHandle:
     def memory_stats(self):
         return self.actor.memory_stats.remote()
 
-    def ping(self, timeout: Optional[float] = 5.0) -> bool:
+    def incarnation(self, timeout: Optional[float] = 5.0) -> Optional[str]:
+        """The answering process's token (None: no answer in time)."""
         import ray_tpu_torch
         try:
-            ray_tpu_torch.get(self.actor.ping.remote(), timeout=timeout)
-            return True
+            return ray_tpu_torch.get(self.actor.incarnation.remote(),
+                                     timeout=timeout)
         except Exception:
-            return False
+            return None
 
     def preempting(self) -> bool:
         import ray_tpu_torch
@@ -1494,8 +1501,10 @@ class GangStageHandle:
             return norm[0]
         return _GangFanout(items, [], reduce)
 
-    def ping(self, timeout: Optional[float] = 5.0) -> bool:
-        return all(m.ping(timeout=timeout) for m in self.members)
+    def incarnation(self, timeout: Optional[float] = 5.0):
+        """Every member's token (None: a member did not answer)."""
+        got = tuple(m.incarnation(timeout=timeout) for m in self.members)
+        return None if None in got else got
 
     def preempting(self) -> bool:
         return any(m.preempting() for m in self.members)
@@ -1511,6 +1520,28 @@ class GangStageHandle:
             vals = [m.fetch(f, timeout=timeout) for m, f in fut.items]
             return fut.reduce(vals)
         return self.members[0].fetch(fut, timeout=timeout)
+
+
+def _names_own_death(handle, err: BaseException) -> bool:
+    """Whether a stage's own fetch error says that the stage's process
+    died: a StageLostError the stage raised itself, or the runtime's
+    ActorDiedError / WorkerCrashedError naming one of its actors. A peer's
+    death carried in through an input names the peer, not this stage."""
+    from ray_tpu_torch._private.serialization import (ActorDiedError,
+                                                      TaskError,
+                                                      WorkerCrashedError)
+    ids = [m.actor._actor_id[:12]
+           for m in getattr(handle, "members", [handle])
+           if hasattr(m, "actor")]
+    seen = set()
+    while err is not None and id(err) not in seen:
+        seen.add(id(err))
+        if isinstance(err, StageLostError):
+            return err.stage_idx == handle.stage_idx
+        if isinstance(err, (ActorDiedError, WorkerCrashedError)):
+            return any(i in str(err) for i in ids)
+        err = err.cause if isinstance(err, TaskError) else err.__cause__
+    return False
 
 
 # -------------------------------------------------------------- controller
@@ -1585,6 +1616,9 @@ class MPMDPipelineTrainer:
         # cause)
         self._dropped: Optional[tuple] = None
         self._loss: Optional[tuple] = None
+        # per stage, the token of the process that answered for it since
+        # it was provisioned (``incarnation``)
+        self._born: Dict[int, Any] = {}
         self._failures_left = self.failure_config.max_failures
         self.recoveries: List[Dict[str, Any]] = []
         self.history: List[Dict[str, Any]] = []
@@ -1648,6 +1682,7 @@ class MPMDPipelineTrainer:
         self.handles = [self._provision(s) for s in range(self.n_stages)]
         self._checkpoint_all(0)
         self._confirm_pending(timeout=60.0)
+        self._note_incarnations()
         return self
 
     def preempt_marker(self, stage_idx: int) -> Optional[str]:
@@ -1876,26 +1911,50 @@ class MPMDPipelineTrainer:
 
     def _collect_applies(self, step, apply_futs):
         """Fetch every stage's apply barrier. Returns one per-chunk
-        metrics LIST per stage."""
-        metrics, first_err = [], None
+        metrics LIST per stage. When a fetch raises, a stage is named
+        lost only on evidence about that stage: its ping goes unanswered,
+        it answers from another incarnation than before, or its own error
+        says that its process died (``_names_own_death``). The order of
+        the fetches decides nothing: a stage whose apply failed because a
+        peer's output never came is a survivor. With no evidence the
+        error names no stage, and every stage goes back to the
+        boundary."""
+        metrics, errors = [], {}
         for s, fut in enumerate(apply_futs):
             try:
                 got = self.handles[s].fetch(
                     fut, timeout=self.config.step_timeout_s)
                 metrics.append([got] if isinstance(got, dict) else list(got))
             except Exception as e:
-                if first_err is None:
-                    first_err = (s, e)
-        if first_err is not None:
-            lost = [s for s, h in enumerate(self.handles)
-                    if not h.ping(timeout=5.0)]
-            raise StageLostError(
-                lost[0] if lost else first_err[0],
-                f"stage {first_err[0]}'s apply raised first, "
-                f"{type(first_err[1]).__name__}: {first_err[1]}; "
-                f"unanswered pings {lost}",
-                stages=lost or [first_err[0]])
-        return metrics
+                errors[s] = e
+        if not errors:
+            return metrics
+        evidence = {}
+        for s, h in enumerate(self.handles):
+            now = h.incarnation(timeout=5.0)
+            if now is None:
+                evidence[s] = "ping unanswered"
+            elif self._born.get(s, now) != now:
+                evidence[s] = "answered from a new incarnation"
+            elif s in errors and _names_own_death(h, errors[s]):
+                evidence[s] = "its own error says it died"
+        first = min(errors)
+        lost = sorted(evidence)
+        raise StageLostError(
+            lost[0] if lost else first,
+            f"apply raised in stages {sorted(errors)}, stage {first}'s "
+            f"{type(errors[first]).__name__}: {errors[first]}; evidence "
+            f"{evidence or 'none: every stage answers as before'}",
+            stages=lost)
+
+    def _note_incarnations(self):
+        """Remember who answers for each stage that has no record yet (a
+        stage provisioned since), to tell a restarted process later."""
+        for s, h in enumerate(self.handles):
+            if s not in self._born:
+                now = h.incarnation(timeout=5.0)
+                if now is not None:
+                    self._born[s] = now
 
     # ------------------------------------------------------- checkpointing
     def _checkpoint_all(self, step):
@@ -1972,7 +2031,10 @@ class MPMDPipelineTrainer:
         if self.config.storage_path:
             from ray_tpu_torch.train.sharded_checkpoint import (
                 restore_stage_shard)
-            shards = [restore_stage_shard(self.config.storage_path, vs)
+            # actor stages: through the weight plane, so the replacement
+            # reads the shard from its node's arena
+            shards = [restore_stage_shard(self.config.storage_path, vs,
+                                          broadcast=self.remote)
                       for vs in self._chunk_indices(stage_idx)]
             return shards[0] if len(shards) == 1 else shards
         raise PipelineDegradedError(
@@ -2034,6 +2096,7 @@ class MPMDPipelineTrainer:
         # 2. rebuild lost stages from their snapshots
         for s in lost:
             self.handles[s].kill()
+            self._born.pop(s, None)
             self.handles[s] = self._provision(s, self._restore_source(s))
 
         # 3. roll surviving stages back to the checkpoint boundary: their
@@ -2051,6 +2114,7 @@ class MPMDPipelineTrainer:
                     f"stage {s} rolled back to step {got}, controller "
                     f"checkpoint boundary is {boundary}")
         self._stage_snap_step = boundary
+        self._note_incarnations()
         return boundary, restored
 
     # --------------------------------------------------- graceful migration
@@ -2070,6 +2134,7 @@ class MPMDPipelineTrainer:
         for s in preempting:
             old = self.handles[s]
             self.handles[s] = self._provision(s, self._resolve_snap(s))
+            self._born.pop(s, None)
             old.kill()
             if self._markers[s]:
                 try:
@@ -2079,6 +2144,7 @@ class MPMDPipelineTrainer:
             events.record_instant(
                 "train.mpmd.stage_migrated", category="train", step=step,
                 stage=s)
+        self._note_incarnations()
 
     # ------------------------------------------------------------- queries
     def _flatten_virtual(self, per_stage: List[Any]) -> List[Any]:

@@ -360,3 +360,54 @@ def test_rl_modules_mirror_jax_and_need_no_jax_or_gymnasium():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+# cluster services (ROADMAP A7c): the CLI, jobs, the dashboard, the
+# autoscaler and usage stats run in processes that load no model
+CLUSTER_SERVICES = ("ray_tpu_torch.job_submission", "ray_tpu_torch.dashboard",
+                    "ray_tpu_torch.autoscaler",
+                    "ray_tpu_torch.autoscaler.autoscaler",
+                    "ray_tpu_torch.autoscaler.instance_manager",
+                    "ray_tpu_torch.autoscaler.launcher",
+                    "ray_tpu_torch.autoscaler.node_provider",
+                    "ray_tpu_torch.scripts.cli",
+                    "ray_tpu_torch._private.usage_stats")
+
+
+def test_cluster_services_are_scanned_and_import_no_torch():
+    """Every cluster-service module is among the files the scans above
+    read, and importing them all loads no torch (nor JAX)."""
+    import subprocess
+    import sys
+    scanned = {".".join(p.relative_to(ROOT).with_suffix("").parts)
+               for p in _port_files()}
+    assert {m for m in CLUSTER_SERVICES
+            if m != "ray_tpu_torch.autoscaler"} <= scanned
+    code = ("import importlib, sys\n"
+            f"for m in {CLUSTER_SERVICES!r}:\n"
+            "    importlib.import_module(m)\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{('torch',) + FORBIDDEN[:4]!r} or m.startswith('ray_tpu.')]\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_a7c_a7d_are_ported_and_what_waits_names_its_item():
+    """No module of the port still refuses a piece of A7c or A7d (the
+    orbax half of the sharded checkpoint, checkpoint_weight_source);
+    the TPU-slice provider waits for A3c-2 and `lint` for the last item of
+    Queue A, and each says so."""
+    hits = [f"{f.relative_to(ROOT)}:{i}" for f in _port_files()
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if re.search(r"\bA7[cd]\b|orbax half .* not ported", line)]
+    assert not hits, hits
+    from ray_tpu_torch.serve.weights import checkpoint_weight_source
+    assert callable(checkpoint_weight_source("/nonexistent"))
+    from ray_tpu_torch.autoscaler.node_provider import GcpTpuNodeProvider
+    with pytest.raises(NotImplementedError, match="A3c-2"):
+        GcpTpuNodeProvider("p", "z", "10.0.0.1:6379")
+    from ray_tpu_torch.scripts import cli
+    with pytest.raises(NotImplementedError, match="devtools/lint"):
+        cli.cmd_lint(None)

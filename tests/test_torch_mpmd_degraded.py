@@ -57,3 +57,87 @@ def test_elastic_probe_imports_no_jax():
             if isinstance(n, ast.ImportFrom) and n.module}
     assert not top & {"jax", "flax", "optax", "ray_tpu"}, top
     assert "chip_smoke" in top and "ray_tpu_torch" in top
+
+
+class _BlamedPeer:
+    """A stage handle whose apply at ``step`` fails at the fetch without
+    naming a death (as a stage whose input never came, or whose process
+    died silently). ``dies``: the stage's state is gone after that apply
+    and it then answers the ping as ``answer`` says: from a new
+    incarnation ("new"), or from the old one with its own error saying it
+    died ("own")."""
+
+    def __init__(self, inner, step, dies=False, answer="new"):
+        self.inner, self.step, self.dies, self.answer = (inner, step, dies,
+                                                         answer)
+        self._failing = None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def apply_step(self, step):
+        fut = self.inner.apply_step(step)
+        if step == self.step and self._failing is None:
+            self._failing = fut
+            if self.dies:
+                self.inner.kill()
+        return fut
+
+    def fetch(self, fut, timeout=None):
+        if fut is self._failing:
+            if self.dies and self.answer == "own":
+                raise StageLostError(self.stage_idx, "its process died")
+            raise TimeoutError(f"stage {self.stage_idx}'s apply barrier "
+                               "timed out")
+        return self.inner.fetch(fut, timeout)
+
+    def ping(self, timeout=None):
+        return True
+
+    def incarnation(self, timeout=None):
+        if self.dies and self._failing is not None and self.answer == "new":
+            return "a fresh process"
+        return "the first process"
+
+
+@pytest.mark.parametrize("answer", ["new", "own"])
+def test_loss_lands_on_the_stage_that_died_not_the_first_to_raise(answer):
+    """Stage 0's apply fetch fails first and stage 1's second, every ping
+    answers; stage 1 died (it answers from a new incarnation, or its own
+    error says so). The loss lands on stage 1 alone, stage 0 survives, and
+    the run recovers to the digests of the run without a kill."""
+    from ray_tpu_torch.train.mpmd import LocalStageHandle
+    base = _trainer()
+    base.fit(_data_fn, 4)
+    tr = _trainer()
+    wrapped = {}
+
+    def provision(idx, snapshot=None):
+        h = tr._default_provision(idx, snapshot)
+        if idx in wrapped or not isinstance(h, LocalStageHandle):
+            return h
+        wrapped[idx] = _BlamedPeer(h, 3, dies=idx == 1, answer=answer)
+        return wrapped[idx]
+    tr._provision_fn = provision
+    tr.start()
+    out = tr.fit(_data_fn, 4)
+    assert [r["stages"] for r in out["recoveries"]] == [[1]], \
+        out["recoveries"]
+    assert tr.handles[0] is wrapped[0]
+    assert tr.handles[1] is not wrapped[1]
+    assert tr.state_digests() == base.state_digests()
+
+
+def test_no_evidence_names_no_stage_and_replays():
+    """A failed apply with every stage answering as before names no stage:
+    every stage goes back to the boundary and the step replays."""
+    base = _trainer()
+    base.fit(_data_fn, 4)
+    tr = _trainer()
+    tr._provision_fn = lambda idx, snapshot=None: _BlamedPeer(
+        tr._default_provision(idx, snapshot), 3)
+    tr.start()
+    out = tr.fit(_data_fn, 4)
+    assert [r["stages"] for r in out["recoveries"]] == [[]]
+    assert "evidence none" in out["recoveries"][0]["cause"]
+    assert tr.state_digests() == base.state_digests()
