@@ -308,19 +308,24 @@ Phases, each of which must pass (any failure exits non-zero):
     installed.
 21. Cluster services on the card (ray_tpu_torch.scripts.cli,
     .job_submission, .dashboard, .autoscaler, train.sharded_checkpoint,
-    serve.weights.checkpoint_weight_source), last before the kernels
-    line; every CLI call is a process with the repo on its path and a
-    TMPDIR of its own. (a) `cli start --head --dashboard` (the dashboard
-    on 127.0.0.1, a free port; a 16 GiB store); `cli submit --wait` of a
-    job that runs phase 17's recipe loop (tpu-3b at full width and
-    depth, bf16, adafactor(3e-4), remat "dots", phase 7's seeds and
-    batch) for 3 steps in a TorchTrainer with one num_gpus=1 worker,
-    whose last step saves the parameters with save_sharded: the job must
-    end SUCCEEDED through JobSubmissionClient, GET /api/jobs and `cli
-    list jobs`, its report must reach get_job_logs, its 3 losses must
-    equal phase 7's bit for bit, and each step must launch B1/B2/B3
-    48/24/24 times; the head's start, the worker's start, the step times
-    and the checkpoint's size and write rate are printed. (b) `cli serve
+    serve.weights.checkpoint_weight_source, data); every CLI call is a
+    process with the repo on its path and a TMPDIR of its own. (a) `cli
+    start --head --dashboard` (the dashboard on 127.0.0.1, a free port; a
+    16 GiB store); phase 7's token batch, once per step, is written as
+    12 rows of 1025 int32 tokens to a Parquet file; `cli submit --wait`
+    of a job whose driver passes data.read_parquet of that file as
+    TorchTrainer(datasets={"train": ...}) and runs phase 17's recipe
+    loop (tpu-3b at full width and depth, bf16, adafactor(3e-4), remat
+    "dots", phase 7's seeds) for 3 steps with one num_gpus=1 worker, each
+    step's batch taken from get_dataset_shard("train").iter_torch_batches
+    (batch_size=4, device="cuda", dtypes=torch.int64), the last step
+    saving the parameters with save_sharded: the job must end SUCCEEDED
+    through JobSubmissionClient, GET /api/jobs and `cli list jobs`, its
+    report must reach get_job_logs, each batch must be phase 7's batch as
+    int64 on cuda:0, its 3 losses must equal phase 7's bit for bit, and
+    each step must launch B1/B2/B3 48/24/24 times; the head's start, the
+    worker's start, the step times, each step's data_wait (the step
+    profiler) and the checkpoint's size and write rate are printed. (b) `cli serve
     deploy` of a YAML naming an LLMDeployment of tpu-3b on a num_gpus=1
     replica whose params_fn is checkpoint_weight_source of (a)'s
     checkpoint: the parameters the replica restored must have the digest
@@ -342,6 +347,23 @@ Phases, each of which must pass (any failure exits non-zero):
     the submit to the node's start, the task's start and the node's
     removal are printed, and the phase's wall time; the job's worker and
     the autoscaled task count their launches (``cluster_launches``).
+22. Data into the card (ray_tpu_torch.data), last before the kernels
+    line, in this process's runtime with an 8 GiB store: 1 GiB of token
+    rows (262,144 rows of 1025 int32 tokens from a numpy seed) in 64
+    Parquet files go through read_parquet, map_batches (each row split
+    into inputs and targets shifted by one), random_shuffle(seed=22) and
+    iter_torch_batches(batch_size=256, dtypes=torch.int64) three times:
+    (a) on the card with a stand-in step (a fixed fp32 matmul chain of
+    ~5 ms, waited for) after each batch, (b) on the card without one, (c)
+    on the CPU. Every batch must be int64 (256, 1024) on cuda:0 (on the
+    CPU in (c)) with its targets its inputs shifted by one; every row
+    must arrive once (the sorted row hashes equal the files'); the order
+    must be the same in all three runs batch by batch (a position-
+    weighted hash of each batch, and three batches element for element);
+    no process or /dev/shm file of the session may remain after
+    shutdown. Each run's rows/s, GB/s into the card, median, p99 and
+    longest wait per batch and its stages' execution stats are printed,
+    and the store's spill, restore and eviction counts. No kernel runs.
 
 The serving model is freed before the training phases and built again
 (from the same seed) for phase 8; each MoE phase builds its own model.
@@ -3520,7 +3542,11 @@ def recipe_worker_loop(config):
     step's checkpoint (``crash_wait``), once (a marker file remembers
     it). With ``save_to`` the last step saves the parameters there with
     ``save_sharded`` (phase 21) and reports the write's time, its bytes
-    and the parameters' digest. Each report carries when the loop began
+    and the parameters' digest. With ``dataset`` each step's batch comes
+    from the trainer's Dataset (``get_dataset_shard("train")``, phase
+    21), through ``iter_torch_batches`` on the worker's card, the wait
+    counted as the profiler's data_wait; the report says whether it
+    equals the batch made here. Each report carries when the loop began
     (``t_loop``, the host's clock)."""
     t_loop = time.time()
     import tempfile
@@ -3544,6 +3570,11 @@ def recipe_worker_loop(config):
     tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
                            generator=torch.Generator(device=device)
                            .manual_seed(3))
+    made = tokens
+    batches = None
+    if config.get("dataset"):
+        batches = iter(train.get_dataset_shard("train").iter_torch_batches(
+            batch_size=B, device=device, dtypes=torch.int64))
     resumed = train.get_checkpoint()
     if resumed is not None:
         saved = torch.load(os.path.join(resumed.to_directory(), "state.pt"),
@@ -3554,6 +3585,9 @@ def recipe_worker_loop(config):
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     while state.step < config["steps"]:
+        if batches is not None:
+            with prof.waiting_for_data():
+                tokens = next(batches)["tokens"]
         before = read_counts(ops)
         t0 = time.perf_counter()
         state, m = step_fn(state, tokens)
@@ -3571,6 +3605,11 @@ def recipe_worker_loop(config):
             "mask": os.environ.get("CUDA_VISIBLE_DEVICES"),
             "resumed": resumed is not None, "t_end": time.time(),
             "t_loop": t_loop}
+        if batches is not None:
+            report["batch"] = {"equal": torch.equal(tokens, made),
+                               "dtype": str(tokens.dtype),
+                               "device": str(tokens.device),
+                               "shape": list(tokens.shape)}
         if config.get("save_to") and state.step == config["steps"]:
             from ray_tpu_torch.train.sharded_checkpoint import save_sharded
             sd = model.state_dict()
@@ -5045,10 +5084,12 @@ def phase21_job(config_json):
     """Phase 21 (a)'s job entrypoint, run by the job's supervisor as
     ``python -c 'import chip_smoke; ...'`` with the cluster's address in
     its environment: phase 17's recipe loop in a num_gpus=1 TorchTrainer
-    worker, its last step saving the parameters with save_sharded; prints
-    the reports on one line that starts with PHASE21."""
+    worker, which takes each step's batch from ``data.read_parquet`` of
+    the smoke's token file through ``TorchTrainer(datasets=)``, its last
+    step saving the parameters with save_sharded; prints the reports on
+    one line that starts with PHASE21."""
     import ray_tpu_torch as rt
-    from ray_tpu_torch import train
+    from ray_tpu_torch import data, train
     config = json.loads(config_json)
     rt.init()
     t_fit = time.time()
@@ -5057,7 +5098,8 @@ def phase21_job(config_json):
         scaling_config=train.ScalingConfig(
             num_workers=1, use_gpu=config["device"] == "cuda"),
         run_config=train.RunConfig(storage_path=config["tmp"],
-                                   name="phase21")).fit()
+                                   name="phase21"),
+        datasets={"train": data.read_parquet(config["data"])}).fit()
     if res.error is not None:
         raise res.error
     print("PHASE21 " + json.dumps({"t_fit": t_fit,
@@ -5144,10 +5186,10 @@ def _cluster_env(tmp):
     return env
 
 
-def cluster_job(rt, card, env, tmp, recipe_steps, config):
+def cluster_job(rt, models, card, env, tmp, recipe_steps, config):
     """Phase 21 (a): a head from the CLI with the dashboard on loopback, a
-    submitted job training ``config``'s recipe in a num_gpus=1 worker and
-    saving a sharded checkpoint. Returns the session, the dashboard's
+    submitted job training ``config``'s recipe in a num_gpus=1 worker on
+    batches from a Parquet Dataset, and saving a sharded checkpoint. Returns the session, the dashboard's
     address, the checkpoint's digest and the worker's launches."""
     import re
     import shlex
@@ -5168,7 +5210,9 @@ def cluster_job(rt, card, env, tmp, recipe_steps, config):
         fail(f"the dashboard listens on {dash}, not on loopback")
     job_cfg = {k: config[k] for k in ("device", "name", "n_layers", "B", "L",
                                       "steps", "loss_chunk", "lr")}
-    job_cfg.update(checkpoint=False, tmp=tmp, save_to=config["ckpt"])
+    job_cfg.update(checkpoint=False, tmp=tmp, save_to=config["ckpt"],
+                   dataset=True, data=write_recipe_tokens(models, config,
+                                                          tmp))
     entry = (f"{sys.executable} -c 'import sys, chip_smoke; "
              f"chip_smoke.phase21_job(sys.argv[1])' "
              f"{shlex.quote(json.dumps(job_cfg))}")
@@ -5207,10 +5251,17 @@ def cluster_job(rt, card, env, tmp, recipe_steps, config):
         same = h["loss"] == loss and h["grad_norm"] == gnorm
         print(f"cluster (a) step {h['step']}: loss {h['loss']!r} (phase 7: "
               f"{loss!r}, bitwise {same}), {h['step_s'] * 1e3:.1f} ms, "
-              f"launches {h['launches']} [{card}]", flush=True)
+              f"data_wait {h['profile'].get('data_wait_ms')} ms (batch from "
+              f"the Dataset: {h['batch']}), launches {h['launches']} "
+              f"[{card}]", flush=True)
         if not same:
             fail(f"cluster job step {h['step']}: loss/grad_norm differ from "
                  f"phase 7's in-process step")
+        want_dev = "cuda:0" if config["device"] == "cuda" else "cpu"
+        if not h["batch"]["equal"] or h["batch"]["device"] != want_dev or \
+                h["batch"]["dtype"] != "torch.int64":
+            fail(f"cluster job step {h['step']}: the Dataset's batch is "
+                 f"{h['batch']}, not phase 7's int64 batch on {want_dev}")
         if h["launches"] != want:
             fail(f"cluster job step {h['step']} launched {h['launches']}, "
                  f"want {want}")
@@ -5223,6 +5274,27 @@ def cluster_job(rt, card, env, tmp, recipe_steps, config):
           f"{ck['s']:.2f} s ({ck['bytes'] / ck['s'] / 1e9:.2f} GB/s), digest "
           f"{ck['digest'][:16]} [{card}]", flush=True)
     return head, dash, ck["digest"], launches
+
+
+def write_recipe_tokens(models, config, tmp):
+    """Phase 7's token batch (B rows of L+1 tokens from the same seed,
+    made on the same device) once per step, as int32 rows of one Parquet
+    file for the job's Dataset. Returns the file's absolute path."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    device, B, L = config["device"], config["B"], config["L"]
+    cfg = recipe_cfg(models, config["name"])
+    tokens = torch.randint(0, cfg.vocab_size, (B, L + 1), device=device,
+                           generator=torch.Generator(device=device)
+                           .manual_seed(3)).to(torch.int32).cpu().numpy()
+    rows = np.concatenate([tokens] * config["steps"])
+    path = os.path.join(tmp, "tokens.parquet")
+    pq.write_table(pa.table({"tokens": pa.FixedSizeListArray.from_arrays(
+        pa.array(rows.reshape(-1)), L + 1)}), path)
+    print(f"cluster (a): {rows.shape[0]} rows of {L + 1} int32 tokens "
+          f"(phase 7's batch, {config['steps']} steps) in {path}",
+          flush=True)
+    return path
 
 
 def models_registry_layers(name):
@@ -5440,8 +5512,8 @@ def run_cluster_services(models, inference, ops, card, recipe_steps,
                   idle_timeout_s=idle_timeout_s)
     try:
         t0 = time.perf_counter()
-        head, dash, digest, launches = cluster_job(rt, card, env, tmp,
-                                                   recipe_steps[:steps],
+        head, dash, digest, launches = cluster_job(rt, models, card, env,
+                                                   tmp, recipe_steps[:steps],
                                                    config)
         print(f"cluster (a): {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
@@ -5462,6 +5534,210 @@ def run_cluster_services(models, inference, ops, card, recipe_steps,
     print(f"cluster: phase 21 {time.perf_counter() - t_phase:.1f} s, "
           f"launches {launches} [{card}]", flush=True)
     return launches
+
+
+# ------------------------------------------------------------- phase 22
+
+def write_token_files(root, n_files, rows_per_file, width, vocab, seed,
+                      weights):
+    """``n_files`` Parquet files of ``rows_per_file`` rows of ``width``
+    int32 tokens below ``vocab`` (one row group each), made with numpy
+    from ``seed``. Returns every row's hash (``weights`` dotted with the
+    row, exact in int64), sorted: the files' order-free digest."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    hashes = []
+    for i in range(n_files):
+        t = rng.integers(0, vocab, (rows_per_file, width), dtype=np.int32)
+        # random tokens neither compress nor dictionary-encode: writing
+        # them plain saves both the writer's and the readers' time
+        pq.write_table(pa.table({"tokens": pa.FixedSizeListArray.from_arrays(
+            pa.array(t.reshape(-1)), width)}),
+            os.path.join(root, f"part-{i:05d}.parquet"),
+            compression="none", use_dictionary=False)
+        hashes.append(t.astype(np.int64) @ weights)
+    return np.sort(np.concatenate(hashes))
+
+
+def split_tokens(table):
+    """Phase 22's map: each row of L+1 tokens becomes ``inputs`` (the
+    first L) and ``targets`` (the last L)."""
+    from ray_tpu_torch.data.block import column_to_dense
+    t = column_to_dense(table.column("tokens"))
+    return {"inputs": t[:, :-1], "targets": t[:, 1:]}
+
+
+def token_pipeline(data, root, seed):
+    """read_parquet -> map_batches(split_tokens) -> random_shuffle(seed)."""
+    return data.read_parquet(root).map_batches(
+        split_tokens, batch_format="pyarrow").random_shuffle(seed=seed)
+
+
+def stand_in_step(device, target_ms):
+    """A fixed fp32 matmul chain of about ``target_ms`` on the card (the
+    stand-in for a training step), and its measured time; nothing on the
+    CPU."""
+    if device != "cuda":
+        return (lambda: None), 0.0
+    a = torch.randn(2048, 2048, device=device)
+    step = functools.partial(torch.mm, a, a)
+    ms = cuda_ms(step, iters=20)
+    reps = max(1, round(target_ms / ms))
+
+    def chain():
+        for _ in range(reps):
+            step()
+    return chain, cuda_ms(chain, iters=10)
+
+
+def consume(batches, device, B, L, weights, step, keep=()):
+    """Iterate phase 22's batches: hold each one's device, dtype, shape and
+    shift, hash its rows (order-free) and the batch (order), run ``step``
+    and wait for the card. Returns the row hashes, the per-batch hashes,
+    the host's wait per batch (s), the kept batches and the seconds."""
+    want_dev = torch.device("cuda", 0) if device == "cuda" else \
+        torch.device("cpu")
+    w_in = torch.as_tensor(weights[:L], device=want_dev)
+    w_last = int(weights[L])
+    gen = torch.Generator().manual_seed(2222)
+    w_pos = torch.randint(1, 2 ** 20, (B, L), generator=gen,
+                          dtype=torch.int64).to(want_dev)
+    rows, order, waits, kept = [], [], [], {}
+    it = iter(batches)
+    t_all = time.perf_counter()
+    i = 0
+    while True:
+        t0 = time.perf_counter()
+        b = next(it, None)
+        waits.append(time.perf_counter() - t0)
+        if b is None:
+            waits.pop()
+            break
+        x, y = b["inputs"], b["targets"]
+        for v in (x, y):
+            if v.device != want_dev or v.dtype != torch.int64 or \
+                    tuple(v.shape) != (B, L):
+                fail(f"phase 22: batch {i} is {v.dtype} {tuple(v.shape)} "
+                     f"on {v.device}, not int64 ({B}, {L}) on {want_dev}")
+        if not torch.equal(x[:, 1:], y[:, :-1]):
+            fail(f"phase 22: batch {i}'s targets are not its inputs "
+                 "shifted by one")
+        rows.append((x * w_in).sum(1) + y[:, -1] * w_last)
+        order.append((x * w_pos).sum())
+        if i in keep:
+            kept[i] = {"inputs": x.cpu(), "targets": y.cpu()}
+        step()
+        sync(device)
+        i += 1
+    seconds = time.perf_counter() - t_all
+    return (torch.cat(rows).cpu().numpy(), torch.stack(order).cpu().tolist(),
+            waits, kept, seconds)
+
+
+def _wait_ms(waits):
+    ms = np.asarray(waits) * 1e3
+    return (f"median {np.median(ms):.3f} ms, p99 "
+            f"{np.percentile(ms, 99):.3f} ms, max {ms.max():.3f} ms")
+
+
+def run_data_ingest(card, device="cuda", n_files=64, rows_per_file=4096,
+                    L=1024, B=256, store_gib=8, step_ms=5.0, seed=22):
+    """Phase 22: Data into the card. ``n_files`` Parquet files of
+    ``rows_per_file`` rows of L+1 int32 tokens (1 GiB at the defaults)
+    stream through read_parquet, map_batches (inputs/targets), a seeded
+    random_shuffle and iter_torch_batches(batch_size=B, device, int64) in
+    this process's runtime, three times: (a) with a stand-in step of
+    ~``step_ms`` on the card, (b) without one, (c) on the CPU. Every row
+    arrives once (an order-free digest against the files'), every batch
+    is int64 (B, L) on the device, and (a), (b) and (c) give the same
+    order batch by batch."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data, models
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase22_")
+    vocab = models.MODEL_REGISTRY["tpu-3b"].vocab_size
+    weights = np.random.default_rng(seed + 1).integers(
+        1, 2 ** 20, L + 1).astype(np.int64)
+    t0 = time.perf_counter()
+    want_rows = write_token_files(os.path.join(tmp, "tokens"), n_files,
+                                  rows_per_file, L + 1, vocab, seed, weights)
+    n_rows = n_files * rows_per_file
+    file_gib = n_rows * (L + 1) * 4 / 2 ** 30
+    print(f"data (22): wrote {n_rows} rows of {L + 1} int32 tokens "
+          f"({file_gib:.3f} GiB) to {n_files} Parquet files in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    rt.init(object_store_memory=store_gib * 2 ** 30)
+    session = rt._context.node.session_name
+    print(f"data (22): init {time.perf_counter() - t0:.2f} s (session "
+          f"{session}, {store_gib} GiB store)", flush=True)
+    n_batches = n_rows // B
+    keep = (0, n_batches // 2, n_batches - 1)
+    try:
+        step, step_real_ms = stand_in_step(device, step_ms)
+        runs = {}
+        for run, dev, do_step in (("a", device, True), ("b", device, False),
+                                  ("c", "cpu", False)):
+            if run == "b" and device != "cuda":
+                continue
+            ds = token_pipeline(data, os.path.join(tmp, "tokens"), seed)
+            batches = ds.iter_torch_batches(batch_size=B, device=dev,
+                                            dtypes=torch.int64)
+            rows, order, waits, kept, secs = consume(
+                batches, dev, B, L, weights,
+                step if do_step else (lambda: None), keep)
+            runs[run] = (order, kept)
+            got_rows = np.sort(rows)
+            card_gb = len(order) * 2 * B * L * 8 / 1e9
+            print(f"data (22{run}): {len(order)} batches on {dev} "
+                  f"{'with a stand-in step of ' + format(step_real_ms, '.3f') + ' ms' if do_step and dev == 'cuda' else 'without a step'}"
+                  f" in {secs:.2f} s: {len(rows) / secs:.0f} rows/s, "
+                  f"{card_gb / secs:.3f} GB/s of int64 batches into the "
+                  f"{'card' if dev == 'cuda' else 'host'}; wait per batch "
+                  f"{_wait_ms(waits)} [{card}]", flush=True)
+            print(f"data (22{run}): stages\n{ds.stats()}", flush=True)
+            if len(order) != n_batches or len(rows) != n_batches * B:
+                fail(f"phase 22 ({run}): {len(order)} batches, want "
+                     f"{n_batches}")
+            if len(got_rows) != len(want_rows) or \
+                    not np.array_equal(got_rows, want_rows):
+                fail(f"phase 22 ({run}): the rows read differ from the "
+                     "files' (order-free digest)")
+        same = {r: runs[r][0] == runs["a"][0] for r in runs}
+        exact = {r: all(torch.equal(runs[r][1][i][k], runs["a"][1][i][k])
+                        for i in keep for k in ("inputs", "targets"))
+                 for r in runs}
+        print(f"data (22): every row once in every run; the shuffled order "
+              f"equals run (a)'s batch by batch (position-weighted hash of "
+              f"every batch): {same}; batches {list(keep)} equal element "
+              f"for element: {exact}", flush=True)
+        if not all(same.values()) or not all(exact.values()):
+            fail("phase 22: the order of the batches differs between the "
+                 "card's and the CPU's runs")
+        core = rt._get_worker().core
+        import asyncio
+        info = asyncio.run_coroutine_threadsafe(
+            core.node_conn.call("get_node_info"), core.loop).result(60)
+        st = info["store"]
+        print(f"data (22): store: spilled {st['spilled']} objects "
+              f"({st['spilled_bytes'] / 2 ** 30:.3f} GiB), restored "
+              f"{st['restored']} ({st['restored_bytes'] / 2 ** 30:.3f} GiB) "
+              f"and {st['restored_inline']} inline, dropped {st['dropped']} "
+              f"restored copies, evicted {st['num_evictions']} "
+              f"({(st['bytes_evicted'] or 0) / 2 ** 30:.3f} GiB)", flush=True)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left, shm = session_left(session)
+    print(f"data (22): after shutdown, the session's processes {left}, "
+          f"/dev/shm files {shm}; phase 22 "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    if left or shm:
+        fail("phase 22 left processes or shared-memory files behind")
 
 
 PHASE_WALL = {}
@@ -5581,6 +5857,9 @@ def main():
     with phase("21"):
         cluster_counts = run_cluster_services(models, inference, ops, card,
                                               recipe_steps)
+    release("cuda")
+    with phase("22"):
+        run_data_ingest(card)
     for name in KERNELS:
         records[name]["launches"] = (train_counts[name] + recipe_counts[name]
                                      + feature_counts.get(name, 0)

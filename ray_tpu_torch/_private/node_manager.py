@@ -277,6 +277,10 @@ class NodeManager:
         self.spilled: Dict[bytes, str] = {}
         # when each spilled object was last restored for a reader
         self._restored_at: Dict[bytes, float] = {}
+        # lifetime counts of the spill plane (get_node_info's store view)
+        self._spill_counts = {"spilled": 0, "spilled_bytes": 0,
+                              "dropped": 0, "restored": 0,
+                              "restored_bytes": 0, "restored_inline": 0}
         # flight-recorder sink: this daemon is not a worker, so its
         # spill/restore/transfer spans ship over the node manager's own
         # GCS connection (resolved at call time — it is replaced on GCS
@@ -1499,6 +1503,9 @@ class NodeManager:
         await asyncio.sleep(0.1)
         self._kill_proc(w)
         self.workers.pop(worker_id, None)
+        # leases this worker OWNED as a submitter (an actor that ran tasks,
+        # such as a Data split coordinator): nobody returns them now
+        self._release_owned_leases(worker_id)
         if w.actor_id is not None:
             # this handler removes the worker before the reaper can see
             # it die, so the actor-failure report (which drives restart
@@ -2008,6 +2015,7 @@ class NodeManager:
     def _spill_pass_locked(self, trigger_frac: float,
                            target_frac: float) -> int:
         import os as _os
+        self._release_restored()
         st = self.store.stats()
         cap = st["capacity"] or 1
         nstripes = int(st.get("num_stripes") or 1)
@@ -2071,6 +2079,59 @@ class NodeManager:
                                     len(pressured), hint_freed, span_n)
         return n
 
+    def _release_restored(self):
+        """A copy restored from disk is created not-evictable, so that no
+        create evicts it before its reader has read it. Once its
+        RESTORE_GRACE_S has passed it is a droppable copy of an object
+        already on disk: mark it evictable."""
+        now = time.monotonic()
+        for oid, t in list(self._restored_at.items()):
+            if now - t < RESTORE_GRACE_S:
+                continue
+            self._restored_at.pop(oid, None)
+            try:
+                self.store.set_evictable(oid, True)
+            except OSError:     # store closed under shutdown race
+                return
+
+    def _spill_for_create(self, need: int) -> int:
+        """A create of ``need`` bytes found no hole and nothing it may
+        evict: the store evicts only droppable copies, never a primary
+        that was not spilled. Spill so that it can fit. The watermark pass
+        runs first; when it frees nothing (a fragmented stripe below the
+        watermark), spill sealed objects from the fullest stripe on until
+        ``need`` bytes have left one stripe, idle or not. An object larger
+        than a stripe needs whole stripes, so spanning objects go first.
+        Returns the bytes freed; 0 means spilling frees nothing (what is
+        left is pinned by readers) and the create fails."""
+        import os as _os
+
+        def in_use(si=None):
+            st = self.store.stats() if si is None \
+                else self.store.stripe_stats(si)
+            return st["bytes_in_use"]
+        with self._spill_mutex:
+            before = in_use()
+            self._spill_pass_locked(0.7, 0.5)
+            if in_use() < before:
+                return before - in_use()
+            if not self._spill_remote:
+                _os.makedirs(self.spill_dir, exist_ok=True)
+            if need > self.store.max_alloc_bytes():
+                self._spill_idle_spans(_os, min_idle_s=0.0)
+                if in_use() < before:
+                    return before - in_use()
+            nstripes = int(self.store.stats().get("num_stripes") or 1)
+            for used, si in sorted(((in_use(i), i) for i in range(nstripes)),
+                                   reverse=True):
+                for oid in self.store.list_stripe(si):
+                    if self._spill_one(oid, _os) is not None and \
+                            used - in_use(si) >= need:
+                        break
+                if in_use() < before:
+                    break
+            return max(0, before - in_use())
+
     def _record_spill_span(self, t0, n, spilled_bytes, cap, stripes,
                            hint_freed, span_n):
         # the span is recorded only for passes that moved something
@@ -2084,7 +2145,8 @@ class NodeManager:
             stripes=stripes, leak_hint_bytes=hint_freed,
             spans=span_n)
 
-    def _spill_idle_spans(self, _os, target_bytes: float = 0.0):
+    def _spill_idle_spans(self, _os, target_bytes: float = 0.0,
+                          min_idle_s: Optional[float] = None):
         """Spill idle spanning objects under GLOBAL pressure: sealed,
         zero pins, older than cfg.span_spill_min_idle_s. Global-only on
         purpose — a span's claimed stripes always read as full, so
@@ -2108,7 +2170,8 @@ class NodeManager:
             if info is None or not info["sealed"] or info["pins"]:
                 continue
             age = now - info["ctime_sec"]
-            if age < cfg.span_spill_min_idle_s:
+            if age < (cfg.span_spill_min_idle_s if min_idle_s is None
+                      else min_idle_s):
                 continue
             rows.append((age, oid))
         rows.sort(reverse=True)           # oldest (idlest) first
@@ -2138,6 +2201,7 @@ class NodeManager:
                 return None
             self._restored_at.pop(oid, None)
             self.store.delete(oid)
+            self._spill_counts["dropped"] += 1
             ledger.record(oid, "location_remove", node_id=self.node_id,
                           reason="spill_drop")
             return 0
@@ -2163,22 +2227,32 @@ class NodeManager:
             buf.close()
         self.spilled[oid] = path
         self.store.delete(oid)
+        self._spill_counts["spilled"] += 1
+        self._spill_counts["spilled_bytes"] += nbytes
         ledger.record(oid, "spilled", node_id=self.node_id, size=nbytes)
         return nbytes
 
-    async def h_spill_now(self, conn):
+    async def h_spill_now(self, conn, need: int = 0):
         """Spill under client-side memory pressure: a worker about to
         create a large object calls this so sealed LRU objects move to
         disk instead of being evicted (reference: plasma's
         CreateRequestQueue blocks creates while LocalObjectManager spills,
-        create_request_queue.h)."""
+        create_request_queue.h). With ``need``, a create of that many
+        bytes has failed: spill until it can fit (``_spill_for_create``).
+        Returns the objects spilled."""
+        if need:
+            return await asyncio.get_event_loop().run_in_executor(
+                None, self._spill_for_create, need)
         return await asyncio.get_event_loop().run_in_executor(
             None, self._spill_pass, 0.7, 0.5)
 
     async def h_restore_object(self, conn, oid: bytes):
         """Restore a spilled object into the store (reference:
         spilled_object_reader.cc restore path). File IO runs on an
-        executor thread."""
+        executor thread. An object the store cannot take (what is
+        resident is pinned by readers, so spilling frees nothing) comes
+        back to the reader as ``{"data", "meta"}`` instead: the
+        counterpart of plasma's fallback allocation outside the arena."""
         return await asyncio.get_event_loop().run_in_executor(
             None, self._restore_sync, oid)
 
@@ -2206,9 +2280,24 @@ class NodeManager:
                     mlen = int.from_bytes(f.read(8), "little")
                     meta = f.read(mlen)
                     data = f.read()
-            # make room by spilling, not by evicting un-spilled objects
+            # make room by spilling, not by evicting un-spilled objects.
+            # The copy is created not-evictable: no create may drop it
+            # before its reader has read it (``_release_restored``)
             self._spill_pass(trigger_frac=0.7, target_frac=0.5)
-            bufs = self.store.create(oid, len(data), len(meta))
+            while True:
+                try:
+                    bufs = self.store.create(oid, len(data), len(meta),
+                                             evictable=False)
+                    break
+                except MemoryError:
+                    if self._spill_for_create(len(data) + len(meta)):
+                        continue
+                    self._spill_counts["restored_inline"] += 1
+                    rspan.end(ok=True, bytes=len(data) + len(meta),
+                              inline=True)
+                    ledger.record(oid, "restored", node_id=self.node_id,
+                                  size=len(data) + len(meta), inline=True)
+                    return {"data": bytes(data), "meta": bytes(meta)}
             if bufs is None:
                 rspan.end(ok=False, bytes=0)
                 return False
@@ -2220,6 +2309,8 @@ class NodeManager:
                 mview[:] = meta
             self.store.seal(oid)
             self._restored_at[oid] = time.monotonic()
+            self._spill_counts["restored"] += 1
+            self._spill_counts["restored_bytes"] += len(data) + len(meta)
             rspan.end(ok=True, bytes=len(data) + len(meta))
             ledger.record(oid, "restored", node_id=self.node_id,
                           size=len(data) + len(meta))
@@ -2269,7 +2360,10 @@ class NodeManager:
                              "num_stripes": st.get("num_stripes"),
                              "num_spans": st.get("num_spans"),
                              "spilled_objects": len(self.spilled),
-                             "evict_hints": len(self._evict_hints)}
+                             "evict_hints": len(self._evict_hints),
+                             "num_evictions": st.get("num_evictions"),
+                             "bytes_evicted": st.get("bytes_evicted"),
+                             **self._spill_counts}
             # per-stripe live/free/largest-hole + span residency: the
             # machine-readable occupancy view (`ray_tpu_torch memory --nodes`,
             # dashboard /api/memory)

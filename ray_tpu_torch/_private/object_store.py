@@ -52,6 +52,9 @@ class _Lib:
                 f = getattr(lib, fn)
                 f.restype = ctypes.c_int
                 f.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+            lib.rt_set_evictable.restype = ctypes.c_int
+            lib.rt_set_evictable.argtypes = [
+                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
             lib.rt_get.restype = ctypes.c_int64
             lib.rt_get.argtypes = [
                 ctypes.c_void_p, ctypes.c_char_p,
@@ -355,6 +358,11 @@ class ObjectStoreClient:
 
     def delete(self, oid: bytes) -> None:
         self._lib.rt_delete(self._handle(), oid)
+
+    def set_evictable(self, oid: bytes, evictable: bool) -> None:
+        """Let the store's in-create eviction drop this copy, or not."""
+        self._lib.rt_set_evictable(self._handle(), oid,
+                                   1 if evictable else 0)
 
     def evict(self, nbytes: int) -> int:
         return self._lib.rt_evict(self._handle(), nbytes)

@@ -686,32 +686,40 @@ class CoreWorker:
 
     def _create_with_spill_retry(self, oid: bytes, data_size: int,
                                  meta_size: int):
-        """store.create with one spill-backed second chance: an
-        arena-full MemoryError asks the node manager to spill sealed
-        objects to disk and retries, so workloads larger than the object
-        store (streaming shuffle sub-blocks) land via spill instead of
-        falling back to unbounded worker-heap copies."""
-        try:
-            return self.store.create(oid, data_size, meta_size)
-        except MemoryError:
-            # arena full: the cached pressure snapshot is clearly stale
+        """store.create of a primary copy, with spilling as the way to
+        room: the copy is created not-evictable (the store's in-create
+        eviction drops only secondary copies and copies already on disk,
+        never a primary that was not spilled), and an arena-full
+        MemoryError asks the node manager to spill until this create fits
+        (``spill_now(need=)``), then retries. The create fails only when
+        spilling frees nothing, so workloads larger than the object store
+        (streaming shuffle sub-blocks) land via spill instead of falling
+        back to unbounded worker-heap copies."""
+        need = data_size + meta_size
+        for _ in range(64):
             try:
-                self._refresh_spill_probe()
-            except Exception:
-                pass
-            if self.node_conn is not None:
+                return self.store.create(oid, data_size, meta_size,
+                                         evictable=False)
+            except MemoryError:
+                # arena full: the cached pressure snapshot is clearly stale
                 try:
-                    if threading.get_ident() == self._loop_thread_ident:
-                        # executing ON the loop: blocking would deadlock —
-                        # kick the spill and retry on LRU eviction alone
-                        self._spawn(self.node_conn.call("spill_now"))
-                    else:
-                        asyncio.run_coroutine_threadsafe(
-                            self.node_conn.call("spill_now"),
-                            self.loop).result(timeout=30)
+                    self._refresh_spill_probe()
                 except Exception:
                     pass
-            return self.store.create(oid, data_size, meta_size)
+                if self.node_conn is None:
+                    raise
+                if threading.get_ident() == self._loop_thread_ident:
+                    # executing ON the loop: blocking would deadlock —
+                    # kick the spill and retry once
+                    self._spawn(self.node_conn.call("spill_now", need=need))
+                    return self.store.create(oid, data_size, meta_size,
+                                             evictable=False)
+                freed = asyncio.run_coroutine_threadsafe(
+                    self.node_conn.call("spill_now", need=need),
+                    self.loop).result(timeout=120)
+                if not freed:
+                    raise
+        return self.store.create(oid, data_size, meta_size, evictable=False)
 
     @off_loop(lock="_ref_lock")
     def _store_serialized(self, oid: bytes, s: serialization.SerializedObject):
@@ -926,6 +934,7 @@ class CoreWorker:
         """Returns (value, is_exception)."""
         oid = ref.id
         tried_restore = False
+        restores = 0
         while True:
             entry = self.memory_store.get(oid)
             if entry is not None:
@@ -934,17 +943,34 @@ class CoreWorker:
                     return self._deser_wire(entry[1], entry[2], entry[3])
                 if kind == "shm":
                     val, is_exc = self._deser_shm(oid)
+                    if tried_restore and not is_exc:
+                        # the copy restored for this read is pinned by the
+                        # value now: once the value lets go, the copy (of
+                        # an object already on disk) may be dropped to
+                        # make room, as any other droppable copy
+                        try:
+                            self.store.set_evictable(oid, True)
+                        except OSError:
+                            pass
                     if (is_exc and isinstance(val, ObjectLostError)
-                            and not tried_restore
+                            and restores < 2
                             and self.node_conn is not None):
                         # evicted locally — maybe spilled to disk by the
-                        # node manager; restore once and retry
+                        # node manager; restore and retry. Twice: another
+                        # reader of the same restored copy may have read
+                        # it and let a create evict it before this read
                         tried_restore = True
+                        restores += 1
                         try:
                             ok = await self.node_conn.call(
                                 "restore_object", oid=oid)
                         except Exception:
                             ok = False
+                        if isinstance(ok, dict):
+                            # no room in the arena, even after spilling:
+                            # the bytes came back to this reader alone
+                            return self._deser_bytes(memoryview(ok["data"]),
+                                                     ok["meta"])
                         if ok:
                             self.memory_store[oid] = ("shm",)
                             continue
@@ -1036,6 +1062,14 @@ class CoreWorker:
         except BaseException as e:
             return e, True
 
+    def _deser_bytes(self, data: memoryview, meta: bytes):
+        try:
+            return serialization.deserialize_from_store(data, meta), False
+        except TaskError as e:
+            return e.cause if isinstance(e.cause, BaseException) else e, True
+        except BaseException as e:
+            return e, True
+
     def _deser_shm(self, oid):
         buf = self.store.get(oid)
         if buf is None:
@@ -1047,12 +1081,7 @@ class CoreWorker:
         # value frees arena space even while the ObjectRef is still held —
         # a later re-get re-reads or restores from spill.
         try:
-            val = serialization.deserialize_from_store(buf.data, buf.metadata)
-            return val, False
-        except TaskError as e:
-            return e.cause if isinstance(e.cause, BaseException) else e, True
-        except BaseException as e:
-            return e, True
+            return self._deser_bytes(buf.data, buf.metadata)
         finally:
             buf.close()
 
@@ -2934,7 +2963,8 @@ class CoreWorker:
             return ["wire"] + list(s.to_wire())
         try:
             meta = s.store_meta()
-            bufs = self.store.create(rid, s.data_size(), len(meta))
+            bufs = self._create_with_spill_retry(rid, s.data_size(),
+                                                 len(meta))
             if bufs is not None:
                 data, meta_view = bufs
                 s.write_to(data)

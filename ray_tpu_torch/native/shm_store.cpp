@@ -594,6 +594,11 @@ int64_t with_entry_locked(Store* s, const uint8_t* id, F&& fn) {
 // Evict lowest-seq sealed+unpinned+evictable objects from ONE stripe until
 // `bytes` are reclaimable. Caller holds the stripe lock. Returns bytes
 // freed. Only this stripe's clients can contend with the sweep.
+// Evictable means droppable: a secondary copy pulled from another node,
+// or a copy of an object that is already on disk. A primary copy is
+// created with flags bit1 (not-evictable) and leaves the arena only by
+// the node manager's spill, never here (Ray's rule: a primary stays
+// pinned until it has been spilled).
 uint64_t evict_stripe_locked(Store* s, uint32_t si, uint64_t bytes) {
   Stripe* sp = &s->hdr->stripes[si];
   if (sp->span_owner) return 0;  // span stripes have no per-entry LRU: a
@@ -1380,6 +1385,28 @@ int rt_contains(void* hs, const uint8_t* id) {
     if (idx != kNil) return ld32(&s->table[idx].state) == kSealed ? 1 : 0;
   }
   return 0;
+}
+
+// Mark an object droppable (evictable != 0) or not. The node manager
+// creates a copy restored from disk not-evictable, so that no create
+// evicts it before its reader has read it, and marks it droppable once
+// that grace has passed. -ENOENT if absent.
+int rt_set_evictable(void* hs, const uint8_t* id, int evictable) {
+  Store* s = static_cast<Store*>(hs);
+  if (span_find(s, id) >= 0) {
+    SpanGuard g(s);
+    int k = span_find(s, id);
+    if (k >= 0) {
+      SpanDesc* d = &s->hdr->spans[k];
+      d->flags = evictable ? (d->flags & ~2u) : (d->flags | 2u);
+      return 0;
+    }
+  }
+  return (int)with_entry_locked(s, id, [&](uint32_t, uint32_t idx) {
+    Entry* e = &s->table[idx];
+    e->flags = evictable ? (e->flags & ~2u) : (e->flags | 2u);
+    return (int64_t)0;
+  });
 }
 
 // Delete (deferred if pinned). -ENOENT if absent.

@@ -48,9 +48,18 @@ class TrainWorker:
             self._session.latest_checkpoint = ckpt
         return True
 
+    def set_dataset_shards(self, shards):
+        if self._session is not None:
+            self._session.dataset_shards = shards
+        return True
+
     def get_node_ip(self):
         from ray_tpu_torch._private.rpc import node_ip_address
         return node_ip_address()
+
+    def get_node_id(self):
+        from ray_tpu_torch._private.worker import global_worker
+        return global_worker.core.node_id
 
     def setup_torch_distributed(self, group_name: str, world_size: int,
                                 rank: int):
@@ -90,6 +99,7 @@ class BackendExecutor:
         self.workers: List = []
         self.run_refs: List = []
         self._bundles: List[Dict] = []
+        self._dataset_shards = None
         self._run_fn = None
         self._run_config = None
 
@@ -137,6 +147,48 @@ class BackendExecutor:
     def set_resume_checkpoint(self, ckpt):
         ray_tpu_torch.get([w.set_resume_checkpoint.remote(ckpt)
                            for w in self.workers], timeout=60)
+
+    def setup_datasets(self, datasets, data_config=None):
+        """Streaming-split datasets across the worker gang (reference:
+        DataConfig streaming split into Train, _internal/data_config.py:
+        one executing stream per dataset, one disjoint shard per worker)."""
+        from ray_tpu_torch.data.split import streaming_split
+        split_names = getattr(data_config, "datasets_to_split", "all") \
+            if data_config is not None else "all"
+        n = len(self.workers)
+        # locality hints (fetched lazily, once, only if a split happens):
+        # bundles already resident on a worker's node deal to that
+        # worker (split.py locality-aware dealing)
+        hints_box: List = []
+
+        def _hints():
+            if not hints_box:
+                try:
+                    hints_box.append(ray_tpu_torch.get(
+                        [w.get_node_id.remote() for w in self.workers],
+                        timeout=60))
+                except Exception:
+                    hints_box.append(None)
+            return hints_box[0]
+
+        per_worker = {i: {} for i in range(n)}
+        for name, ds in datasets.items():
+            split = split_names == "all" or name in split_names
+            if split and n > 1:
+                shards = streaming_split(ds, n, locality_hints=_hints())
+                for i in range(n):
+                    per_worker[i][name] = shards[i]
+            else:
+                # replicated: each worker gets its own full stream
+                for i in range(n):
+                    per_worker[i][name] = streaming_split(ds, 1)[0]
+        # the ORIGINAL coordinator handles live in these iterators: they
+        # must outlive the run (worker-side copies are non-owning, and
+        # dropping the originals would kill the coordinators mid-stream)
+        self._dataset_shards = per_worker
+        ray_tpu_torch.get([w.set_dataset_shards.remote(per_worker[i])
+                           for i, w in enumerate(self.workers)],
+                          timeout=120)
 
     def _spawn_worker(self, bundle_index: int):
         actor_cls = ray_tpu_torch.remote(TrainWorker)
@@ -210,8 +262,8 @@ class BackendExecutor:
 
     def replace_failed_workers(self, resume_checkpoint=None) -> List[int]:
         """Build a fresh actor in each dead worker's bundle, re-wire its
-        rank, push the latest checkpoint, and restart its training loop —
-        the surviving workers never stop. Returns the replaced indexes
+        rank, push the latest checkpoint + its dataset shards, and restart
+        its training loop — the surviving workers never stop. Returns the replaced indexes
         (empty when nothing was dead or replace is unsupported)."""
         if not self.supports_worker_replace():
             return []
@@ -230,6 +282,9 @@ class BackendExecutor:
             if resume_checkpoint is not None:
                 ray_tpu_torch.get(w.set_resume_checkpoint.remote(
                     resume_checkpoint), timeout=60)
+            if self._dataset_shards is not None:
+                ray_tpu_torch.get(w.set_dataset_shards.remote(
+                    self._dataset_shards[i]), timeout=120)
             self.workers[i] = w
             self.run_refs[i] = w.run.remote(self._run_fn, self._run_config)
             events.record_instant(
@@ -238,6 +293,7 @@ class BackendExecutor:
         return failed
 
     def shutdown(self):
+        self._dataset_shards = None
         self.run_refs = []
         # gang teardown: surviving workers of a partially-failed gang
         # must die with it (a half-dead gang can't run collectives and

@@ -41,6 +41,7 @@ class _Session:
         self.results: List[Dict[str, Any]] = []
         self.lock = threading.Lock()
         self.latest_checkpoint: Optional[Checkpoint] = None
+        self.dataset_shards: Dict[str, Any] = {}
 
     def report(self, metrics: Dict[str, Any],
                checkpoint: Optional[Checkpoint] = None):
@@ -126,8 +127,13 @@ def step_profiler():
 
 def get_dataset_shard(name: str = "train"):
     """This worker's streaming shard of a Dataset passed to the trainer
-    (reference: ray.train.get_dataset_shard). The port has no ``data``
-    package yet."""
-    raise NotImplementedError(
-        "get_dataset_shard needs ray_tpu_torch.data, which is not ported "
-        "yet (ROADMAP.md, Queue A item A7)")
+    (reference: ray.train.get_dataset_shard — DataIterator per worker)."""
+    s = _session
+    if s is None:
+        raise RuntimeError("not inside a training worker")
+    shard = s.dataset_shards.get(name)
+    if shard is None:
+        raise KeyError(
+            f"no dataset shard {name!r}; trainer datasets: "
+            f"{sorted(s.dataset_shards)}")
+    return shard

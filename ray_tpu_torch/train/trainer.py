@@ -15,8 +15,9 @@ from typing import Any, Callable, Dict, Optional
 
 from ray_tpu_torch.train.backend_executor import BackendExecutor
 from ray_tpu_torch.train.checkpoint import Checkpoint, CheckpointManager
-from ray_tpu_torch.train.config import (CheckpointConfig, FailureConfig,
-                                        RunConfig, ScalingConfig)
+from ray_tpu_torch.train.config import (CheckpointConfig, DataConfig,
+                                        FailureConfig, RunConfig,
+                                        ScalingConfig)
 
 
 @dataclasses.dataclass
@@ -34,15 +35,14 @@ class TorchTrainer:
                  scaling_config: Optional[ScalingConfig] = None,
                  run_config: Optional[RunConfig] = None,
                  datasets: Optional[Dict[str, Any]] = None,
+                 dataset_config: Optional[DataConfig] = None,
                  resume_from_checkpoint: Optional[Checkpoint] = None):
-        if datasets:
-            raise NotImplementedError(
-                "datasets need ray_tpu_torch.data, which is not ported yet "
-                "(ROADMAP.md, Queue A item A7)")
         self.train_loop = train_loop_per_worker
         self.train_loop_config = train_loop_config
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
+        self.datasets = datasets or {}
+        self.dataset_config = dataset_config
         self.resume_from_checkpoint = resume_from_checkpoint
 
     def fit(self) -> Result:
@@ -82,6 +82,9 @@ class TorchTrainer:
                 executor.start()
                 if resume is not None:
                     executor.set_resume_checkpoint(resume)
+                if self.datasets:
+                    executor.setup_datasets(self.datasets,
+                                            self.dataset_config)
                 executor.start_training(self.train_loop,
                                         self.train_loop_config)
                 while True:

@@ -38,6 +38,7 @@ the CPU and on the card.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -180,7 +181,10 @@ class _StepScope:
     def __init__(self, prof: "StepProfiler", tokens: Optional[int]):
         self._prof = prof
         self._tokens = tokens
-        self._t0 = time.perf_counter()
+        # a batch waited for before the step began (waiting_for_data)
+        # belongs to this step's data phase
+        waited, prof._data_t0 = prof._data_t0, None
+        self._t0 = time.perf_counter() if waited is None else waited
         self._t_data: Optional[float] = None
 
     def data_ready(self):
@@ -230,6 +234,7 @@ class StepProfiler:
         self.steps = 0
         self.last: Dict[str, Any] = {}
         self._prev_end: Optional[float] = None
+        self._data_t0: Optional[float] = None
         self._lock = threading.Lock()
         self._g_mfu = Gauge(f"runtime_{name}_mfu",
                             f"model FLOPs utilization of the {name} loop "
@@ -273,6 +278,20 @@ class StepProfiler:
         return call
 
     # -------------------------------------------------------------- steps
+    @contextlib.contextmanager
+    def waiting_for_data(self):
+        """Time a wait on the input pipeline that happens before the step
+        function is called (``next()`` of ``iter_torch_batches``): the
+        next ``step()`` then begins when this wait began, and reports the
+        wait as its ``data_wait`` phase.
+
+        ``with prof.waiting_for_data(): batch = next(batches)``"""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._data_t0 = t0
+
     def step(self, tokens: Optional[int] = None) -> _StepScope:
         """``with prof.step(tokens=B*L) as s: batch=...; s.data_ready();
         out = step_fn(batch); s.block(out)``"""

@@ -49,11 +49,18 @@ def _chan_path(tag):
 
 def _torn_down(dag):
     """teardown() closes every edge: each loop returns "closed" and no
-    file of the DAG's channels is left."""
+    file of the DAG's channels is left. Then the DAG's actors are killed,
+    so that the next test finds the module runtime's CPUs free: left to
+    the collection of their handles, they held five of its six CPUs when
+    the two-stage test began, and under load its second stage actor
+    waited out compile's 60 s for a CPU ("insufficient resources for
+    actor")."""
     dag.teardown()
     assert set(rt.get(dag._loop_refs, timeout=30)) == {"closed"}
     assert dag.prefix.startswith(CHANNEL_PREFIX)
     assert not glob.glob(f"{glob.escape(dag.prefix)}*")
+    for handle in dag._actors.values():
+        rt.kill(handle)
 
 
 def test_channel_same_process():

@@ -424,3 +424,40 @@ def test_sac_learner_update_on_card_equals_cpu():
                        learner.q_target.state_dict().items()},
                     "log_alpha": learner.log_alpha.detach()}
     assert _max_state_diff(out["cpu"], out["cuda"]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_iter_torch_batches_on_card_equal_cpu_batches():
+    """Data's device feed on the card: 64 batches of int32 token rows
+    through iter_torch_batches(device="cuda", device_prefetch=4), each
+    read on the consumer's stream the moment it is handed out while a
+    matmul keeps the card busy, equal bit for bit to the same batches on
+    the CPU (a pinned host buffer reused before its copy had finished
+    would show here as a wrong batch, with no error)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    rt.init(num_cpus=2, object_store_memory=512 * 2 ** 20)
+    try:
+        rng = np.random.default_rng(64)
+        tokens = rng.integers(0, 32000, (64 * 32, 257)).astype(np.int32)
+        ds = data.from_numpy(tokens, "tokens", parallelism=8)
+        cpu = list(ds.iter_torch_batches(batch_size=32, device="cpu",
+                                         dtypes=torch.int64))
+        a = torch.randn(1024, 1024, device="cuda")
+        got = []
+        for b in ds.iter_torch_batches(batch_size=32, device="cuda",
+                                       dtypes=torch.int64,
+                                       device_prefetch=4):
+            got.append(b["tokens"].clone())
+            torch.mm(a, a)
+        torch.cuda.synchronize()
+        assert len(got) == len(cpu) == 64
+        for g, c in zip(got, cpu):
+            assert g.device.type == "cuda" and g.dtype == torch.int64
+            assert torch.equal(g.cpu(), c["tokens"])
+        assert torch.equal(torch.cat([c["tokens"] for c in cpu]),
+                           torch.from_numpy(tokens).long())
+    finally:
+        rt.shutdown()

@@ -80,3 +80,26 @@ def test_concurrent_restores_each_find_the_object_sealed(runtime):
         timeout=120)
     assert got == [(True, True)] * 4, got
     np.testing.assert_array_equal(rt.get(ref, timeout=60), big)
+
+
+def test_create_in_a_fragmented_stripe_keeps_held_primaries(runtime):
+    """A put that fits no hole of a fragmented stripe spills to make room;
+    it never evicts a primary copy whose owner still holds it (Ray's rule:
+    a primary stays pinned until it has been spilled). Forty 1 MiB
+    objects and a 20 MiB one fill the stripe to ~94%; dropping every
+    other 1 MiB object leaves twenty 1 MiB holes at ~63% in use (under
+    the sweep's watermark), so an 8 MiB put fits no hole. Every held
+    object reads back equal afterwards, the 8 MiB one too."""
+    mib = 2 ** 20
+    small = [np.full(mib, i, dtype=np.uint8) for i in range(40)]
+    refs = [rt.put(a) for a in small]
+    tail = np.arange(20 * mib, dtype=np.uint8)
+    tref = rt.put(tail)
+    held = {i: refs[i] for i in range(1, 40, 2)}
+    del refs
+    big = np.full(8 * mib, 0xAB, dtype=np.uint8)
+    bref = rt.put(big)
+    for i, ref in held.items():
+        np.testing.assert_array_equal(rt.get(ref, timeout=30), small[i])
+    np.testing.assert_array_equal(rt.get(tref, timeout=30), tail)
+    np.testing.assert_array_equal(rt.get(bref, timeout=30), big)

@@ -118,12 +118,15 @@ def test_trainer_survives_one_crash(runtime, tmp_path):
 
 
 def test_slice_topology_and_datasets_name_their_items():
+    """A slice topology still waits for A3c-2 and says so; datasets
+    (A7a) are ported: the trainer keeps them for its workers' shards, and
+    a shard is asked for only inside a training worker."""
     with pytest.raises(NotImplementedError, match="A3c-2"):
         train.backend_executor.BackendExecutor(
             train.ScalingConfig(topology="v4-32")).start()
-    with pytest.raises(NotImplementedError, match="A7"):
-        train.TorchTrainer(cases.report_loop, datasets={"train": [1]})
-    with pytest.raises(NotImplementedError, match="A7"):
+    trainer = train.TorchTrainer(cases.report_loop, datasets={"train": [1]})
+    assert trainer.datasets == {"train": [1]}
+    with pytest.raises(RuntimeError, match="not inside a training worker"):
         train.get_dataset_shard()
 
 
